@@ -1,0 +1,225 @@
+"""GraphContext: the per-graph registry of derived execution structures.
+
+The port's counterpart of `repro.core.context`. Every backend wants
+something built from a `CSRGraph` once and reused across calls — the cuda
+backend its degree-bucketed sliced-ELL view (reverse orientation, with the
+COO hub tail), tests and benchmarks the dense padded ELL view. All derived
+state for a graph lives in ONE `GraphContext`, found through a
+weakref-keyed module registry:
+
+    ctx = get_context(g)                 # registered on first touch
+    ell = ctx.sliced_ell(schedule)       # built once per (layout, reverse)
+
+Entries hold a WEAK reference to the graph: `id(g)` alone is unsafe (ids
+are reused after GC) and a strong reference would leak every graph ever
+run. `prepare(g, schedule)` is the explicit warm-up entry point.
+`fingerprint()` is a stable content digest of the graph and `stats()`
+summarizes its degree distribution and frontier growth.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import weakref
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..graph.csr import CSRGraph, resolve_schedule, to_ell, to_sliced_ell
+from ..schedule import Schedule
+
+
+class GraphContext:
+    """Owns every derived structure of one graph, keyed by (kind, layout).
+
+    Views are built lazily and memoized; two schedules that share a
+    `layout_key()` share the same sliced view, and all programs compiled
+    against the graph share this one context."""
+
+    __slots__ = ("_graph_ref", "_views")
+
+    def __init__(self, graph: CSRGraph):
+        self._graph_ref = weakref.ref(graph)
+        self._views: dict = {}
+
+    @property
+    def graph(self) -> CSRGraph:
+        g = self._graph_ref()
+        if g is None:
+            raise ReferenceError(
+                "the graph behind this GraphContext was garbage-collected")
+        return g
+
+    def view(self, key, build):
+        """Memoized derived structure: `build(graph)` runs at most once."""
+        v = self._views.get(key)
+        if v is None:
+            v = self._views[key] = build(self.graph)
+        return v
+
+    def view_keys(self) -> list:
+        """The (kind, ...) keys of every view built so far (introspection)."""
+        return sorted(self._views, key=repr)
+
+    # ---- memory accounting -------------------------------------------------
+    def view_nbytes(self) -> dict:
+        """Bytes of tensor storage held by each built view, keyed like
+        `_views` (a storage shared between tensors is counted once per
+        view; metadata views count zero)."""
+        return {k: _storage_nbytes(v) for k, v in self._views.items()}
+
+    # ---- the derived structures ------------------------------------------
+    def sliced_ell(self, schedule: Optional[Schedule] = None, *,
+                   reverse: bool = True):
+        """Degree-bucketed sliced-ELL view (+ COO hub tail). `reverse=True`
+        is the pull orientation the engine relaxes/gathers over."""
+        sched = resolve_schedule(schedule)
+        key = ("sliced_ell", bool(reverse), sched.layout_key())
+        return self.view(key, lambda g: to_sliced_ell(
+            g, reverse=reverse, schedule=sched))
+
+    def ell(self, *, reverse: bool = False):
+        """Dense padded `[N, max_deg]` ELL view (baseline)."""
+        return self.view(("ell", bool(reverse)),
+                         lambda g: to_ell(g, reverse=reverse))
+
+    def fingerprint(self) -> str:
+        """Stable content digest of the graph (structure + weights)."""
+        return self.view(("fingerprint",), _graph_fingerprint)
+
+    def stats(self) -> dict:
+        """Degree-distribution + frontier-growth summary (host-side, memoized)."""
+        return self.view(("stats",), _graph_stats)
+
+
+def _storage_nbytes(v, _seen=None) -> int:
+    """Bytes of tensor storage reachable from a derived view: walks
+    dataclass fields, dicts and sequences; each storage counts once."""
+    if _seen is None:
+        _seen = set()
+    if isinstance(v, torch.Tensor):
+        st = v.untyped_storage()
+        if st.data_ptr() in _seen:
+            return 0
+        _seen.add(st.data_ptr())
+        return int(st.nbytes())
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        return sum(_storage_nbytes(getattr(v, f.name), _seen)
+                   for f in dataclasses.fields(v))
+    if isinstance(v, dict):
+        return sum(_storage_nbytes(x, _seen) for x in v.values())
+    if isinstance(v, (list, tuple)):
+        return sum(_storage_nbytes(x, _seen) for x in v)
+    return 0
+
+
+# --------------------------------------------------------------------------
+# graph identity + statistics
+# --------------------------------------------------------------------------
+
+PROBE_MAX_LEVELS = 64   # frontier probe cap: deep graphs saturate the signal
+
+
+def _graph_fingerprint(g: CSRGraph) -> str:
+    """sha256 over (N, E, version, indptr, indices, weights), truncated to
+    16 hex chars — the reference's digest of the same graph."""
+    h = hashlib.sha256()
+    h.update(f"{g.num_nodes}:{g.num_edges}:{g.version}:".encode())
+    for arr in (g.indptr, g.indices, g.weights):
+        h.update(np.ascontiguousarray(arr.cpu().numpy()).tobytes())
+    return h.hexdigest()[:16]
+
+
+def _graph_stats(g: CSRGraph) -> dict:
+    """Host-side numpy summary of the degree distribution plus a capped
+    level-synchronous BFS probe from the highest-out-degree vertex."""
+    n, e = g.num_nodes, g.num_edges
+    out_deg = g.out_degree.cpu().numpy()
+    avg = e / n if n else 0.0
+    std = float(out_deg.std()) if n else 0.0
+    weights = g.weights.cpu().numpy()
+    avg_w = float(weights.mean()) if e else 0.0
+    stats = {
+        "num_nodes": n,
+        "num_edges": e,
+        "avg_degree": round(avg, 3),
+        "max_out_degree": int(g.max_out_degree),
+        "max_in_degree": int(g.max_in_degree),
+        "skew": round(g.max_out_degree / avg, 3) if avg else 1.0,
+        "deg_cv": round(std / avg, 3) if avg else 0.0,
+        "avg_weight": round(avg_w, 3),
+        "max_weight": int(weights.max()) if e else 0,
+    }
+    if e == 0:
+        stats.update(probe_depth=0, probe_max_frontier_frac=0.0,
+                     probe_growth=1.0, probe_reach_frac=0.0)
+        return stats
+    edge_src = g.edge_src.cpu().numpy()
+    indices = g.indices.cpu().numpy()
+    root = int(out_deg.argmax())
+    level = np.full(n, -1, np.int32)
+    level[root] = 0
+    front = np.zeros(n, bool)
+    front[root] = True
+    sizes = [1]
+    for lvl in range(PROBE_MAX_LEVELS):
+        hit = np.zeros(n, bool)
+        hit[indices[front[edge_src]]] = True
+        newly = hit & (level < 0)
+        if not newly.any():
+            break
+        level[newly] = lvl + 1
+        front = newly
+        sizes.append(int(newly.sum()))
+    growth = max((b / a for a, b in zip(sizes, sizes[1:])), default=1.0)
+    stats.update(
+        probe_depth=len(sizes) - 1,
+        probe_max_frontier_frac=round(max(sizes) / n, 4),
+        probe_growth=round(growth, 2),
+        probe_reach_frac=round(sum(sizes) / n, 4),
+    )
+    return stats
+
+
+# --------------------------------------------------------------------------
+# registry
+# --------------------------------------------------------------------------
+
+_REGISTRY: dict = {}   # id(graph) -> (weakref(graph), GraphContext)
+
+
+def get_context(g: CSRGraph) -> GraphContext:
+    """The graph's `GraphContext`, creating (and registering) it on first
+    touch."""
+    key = id(g)
+    entry = _REGISTRY.get(key)
+    if entry is None or entry[0]() is not g:
+        ref = weakref.ref(g, lambda _r, _k=key: _REGISTRY.pop(_k, None))
+        _REGISTRY[key] = entry = (ref, GraphContext(g))
+    return entry[1]
+
+
+def prepare(g: CSRGraph, schedule: Optional[Schedule] = None, *,
+            backend: str = "cuda", program=None) -> GraphContext:
+    """Explicit warm-up: build the derived structures `backend` needs so the
+    first query against `g` pays no host-side view construction.
+
+    * ``cuda`` — the reverse sliced-ELL view for `schedule`'s layout;
+    * ``local`` — nothing derived (the CSR tensors ARE the layout); the
+      context is still registered so `bind` is uniform.
+
+    `program=` supplies the schedule/backend defaults. Returns the graph's
+    `GraphContext`. Idempotent and cheap when already warm."""
+    if program is not None:
+        if schedule is None:
+            schedule = getattr(program, "schedule", None)
+        backend = getattr(program, "backend", backend)
+    sched = resolve_schedule(schedule)
+    ctx = get_context(g)
+    if backend == "cuda":
+        ctx.sliced_ell(sched, reverse=True)
+    elif backend != "local":
+        raise ValueError(
+            f"unknown backend {backend!r}; expected 'local' or 'cuda'")
+    return ctx

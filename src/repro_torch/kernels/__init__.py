@@ -1,0 +1,12 @@
+"""Hand-written Hopper kernels for the port, one package per TPU kernel.
+
+Each kernel package has:
+  csrc/*.cu — the CUDA C++ kernel (sm_90a), built by `_build.py` on first use
+  kernel.py — the wrapper: checks its inputs, launches the kernel for CUDA
+              tensors (or raises) and runs the plain version for CPU tensors
+  ops.py    — the graph-level ops the generated code calls
+  ref.py    — the plain-torch version the tests and chip_smoke.py compare with
+
+  ell_spmv — SSSP relax / PR gather as block-ELL semiring SpMV/SpMM
+             (replaces repro/kernels/ell_spmv/kernel.py::ell_spmv)
+"""

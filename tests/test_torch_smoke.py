@@ -1,0 +1,60 @@
+"""chip_smoke.py on a machine without a card: the smoke run refuses, the
+CPU rehearsal runs the plain versions through every check and says it is
+not a smoke run, and the per-call bound counts what the call must move."""
+import importlib.util
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SMOKE = ROOT / "chip_smoke.py"
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+
+
+def run_smoke(*args):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, str(SMOKE), *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_smoke_run_fails_without_a_card(no_card):
+    r = run_smoke()
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+    assert "no CUDA device" in r.stderr
+
+
+def test_cpu_rehearsal_checks_every_run_and_is_not_a_smoke_run(no_card):
+    r = run_smoke("--scale", "8", "--device", "cpu")
+    assert r.returncode == 3, r.stderr
+    assert "[check]" in r.stdout
+    assert "not a smoke run" in r.stdout
+    assert '"ok"' not in r.stdout and '"kernels"' not in r.stdout
+    runs = [json.loads(line) for line in r.stdout.splitlines()
+            if line.startswith('  {"program"')]
+    assert {(i["program"], i["backend"]) for i in runs} == {
+        (p, b) for p in ("sssp", "sssp_pull", "pr") for b in ("cuda", "local")}
+    assert all(i["launches"] == 0 for i in runs)   # the CPU never counts a launch
+
+
+def test_bound_counts_each_operand_once():
+    spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    r, d, m, b = 1000, 8, 300, 32
+    want = (2 * r * d + m * b + r * b) * 4 / smoke.HBM_BYTES_PER_S * 1e3
+    ms, by = smoke.bound_ms(r, d, m, b)
+    assert by == "bytes"
+    assert ms == pytest.approx(want, rel=1e-12)
+    # fewer x rows reached, fewer bytes: the bound never counts unread rows
+    assert smoke.bound_ms(r, d, m // 2, b)[0] < ms
