@@ -36,12 +36,38 @@ Phases, each printed with its own seconds; any failure exits non-zero:
                torch.profiler, printing the device time by kernel, the
                device-busy share of the traced call (kernel time over wall
                time; one stream, so kernels do not overlap) and the traced
-               call's wall time beside the untraced one (the tracing cost).
+               call's wall time beside the untraced one (the tracing cost);
+               phase 9 then traces one prefill and one decode step the same
+               way;
+  8. lm-kernels — `flash_attention` against `attention_ref` on the same
+               seeded inputs: the reference's test shapes and two with
+               SQ < 8 (f32 at atol 2e-5, bf16 at 3e-2, causal and not) and
+               qwen2.5-3b's shape (BH 16, D 128, bf16, causal) at S = 32,
+               512, 2048 and 4096; then at the path's shape, BH 16, S =
+               32,768, against `attention_ref` run in blocks of 1,024 query
+               rows (whole, its f32 scores would be 68.7 GB): elementwise
+               at rtol = atol = 2^-7 and each block's rms error within 1% of
+               its rms. The kernel is timed there with CUDA events beside
+               its bound, that plain run and SDPA;
+  9. lm      — qwen2.5-3b at full width and depth (3,086,200,832
+               parameters, bf16, seeded init): a 32,768-token prefill
+               through the kernel (second call timed; the kernel must launch
+               once per layer, 36 times; peak memory counted above what
+               earlier phases hold), kernel against plain end to end at
+               2,048 tokens, and ServeEngine(max_len=64, batch_size=4)
+               serving 4 prompts of 32 tokens with 16 new tokens each, the
+               prefill forward held against the decode chain at position 31;
+ 10. tc      — rmat(14, edge_factor=16) → prepare_lower → count_triangles_dense
+               on the card (N = 16,384), equal to a scipy count on the host
+               and to `tc_matmul_ref`; the kernel timed beside its bound,
+               the plain version and a bf16 matmul-and-mask.
 
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. Without a CUDA device the run fails; a
-`--device cpu` rehearsal runs phases 3, 5 and 6 with the plain versions,
-prints no result line and exits 3: it is not a smoke run.
+The line before the last is {"kernels": [...]} (ell_spmv's two semirings,
+flash_attention.bf16 and tc_matmul.f32); the last line is {"ok": true,
+"device": {...}}. Without a CUDA device the run fails; a `--device cpu`
+rehearsal runs phases 3, 5, 6 and 8 to 10 with the plain versions at smoke
+sizes (the LM's smoke config, a 256-token prefill, RMAT 8), prints no
+result line and exits 3: it is not a smoke run.
 """
 from __future__ import annotations
 
@@ -57,9 +83,17 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM bf16 on the tensor cores, dense
 SOURCE = "src/repro_torch/kernels/ell_spmv/csrc/ell_spmv.cu"
 REPLACES = "src/repro/kernels/ell_spmv/kernel.py:76"
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:81"
+TC_SOURCE = "src/repro_torch/kernels/tc_matmul/csrc/tc_matmul.cu"
+TC_REPLACES = "src/repro/kernels/tc_matmul/kernel.py:50"
 TIMED_LAUNCHES = 20
+# logits of the full-size LM (std about 1): two bf16 paths through 36
+# layers agree within this (PERF.md, "lm" phase)
+LM_LOGIT_ATOL = 0.25
 
 
 def phase(name, t0, detail=""):
@@ -83,9 +117,9 @@ def import_port():
 # kernel vs plain
 # --------------------------------------------------------------------------
 
-def cuda_ms(fn, n=TIMED_LAUNCHES):
+def cuda_ms(fn, n=TIMED_LAUNCHES, warm=3):
     import torch
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -236,16 +270,16 @@ def drive(g, backend, name, direction, params, on_card):
     return bound, out, info
 
 
-def trace_run(bound, params, top=12):
-    """One more call under torch.profiler: device time by kernel and the
-    device-busy share of the call's wall time."""
+def trace_run(fn, top=12):
+    """One more call of `fn` under torch.profiler: device time by kernel and
+    the device-busy share of the call's wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        bound(**params)
+        fn()
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t
     rows = []
@@ -328,6 +362,314 @@ def check_results(g, results, t0):
     phase("check", t0, "cuda == local, dist == Dijkstra, pageRank == float64 iteration")
 
 
+# --------------------------------------------------------------------------
+# LM: flash_attention against its plain version, then the model's paths
+# --------------------------------------------------------------------------
+
+FLASH_TEST_SHAPES = ((2, 128, 128, 64), (1, 256, 256, 32), (3, 128, 256, 64),
+                     (2, 64, 512, 128))   # tests/test_kernels.py:180-200
+# SQ < 8, which the reference leaves to its plain version (a TPU tiling
+# limit); the CUDA kernel takes it, as gqa_attention sends it there
+FLASH_SHORT_SHAPES = ((2, 4, 4, 64), (3, 1, 256, 128))
+# the kernel against the plain version at the path's shape, bf16:
+# elementwise |kernel - plain| <= FLASH_RTOL·|plain| + FLASH_ATOL, and per
+# block of query rows rms(kernel - plain) <= FLASH_REL_RMS · rms(plain)
+# (PERF.md, "Tolerances")
+FLASH_RTOL = FLASH_ATOL = 2.0 ** -7
+FLASH_REL_RMS = 1e-2
+PLAIN_CHUNK = 1024
+
+
+def attention_ref_in_chunks(q, k, v, chunk):
+    """Causal attention_ref, one block of `chunk` query rows at a time
+    against the kv rows that block can see: the same function as one
+    call, with only [BH, chunk, <= SKV] f32 scores live at once. Each
+    block's causal offset SKV' - SQ' is its first row plus SKV - SQ."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    sq, skv = q.shape[1], k.shape[1]
+    if skv < sq:
+        raise ValueError(f"SKV={skv} < SQ={sq}: some rows see no kv row")
+    out = torch.empty_like(q)
+    for i in range(0, sq, chunk):
+        j = min(i + chunk, sq)
+        end = j + skv - sq
+        out[:, i:j] = attention_ref(q[:, i:j], k[:, :end], v[:, :end], causal=True)
+    return out
+
+
+def flash_vs_plain(got, want, chunk):
+    """Elementwise excess over the tolerance and the worst per-block
+    relative rms error of the kernel's output against the plain one."""
+    diff = (got.float() - want.float()).abs()
+    excess = float((diff - FLASH_RTOL * want.float().abs()).max())
+    rel_rms = 0.0
+    for i in range(0, got.shape[1], chunk):
+        d, w = diff[:, i:i + chunk], want[:, i:i + chunk].float()
+        rel_rms = max(rel_rms, float(d.square().mean().sqrt() / w.square().mean().sqrt()))
+    return float(diff.max()), excess, rel_rms
+
+
+def flash_bound_ms(bh, sq, skv, d, causal, itemsize):
+    """4·D FLOPs per (query, kv) pair that the mask keeps, over the bf16
+    tensor-core rate, vs q, k, v read once and o written once."""
+    offset = skv - sq
+    if causal:
+        i = np.arange(sq, dtype=np.int64)
+        pairs = int(np.clip(i + offset + 1, 0, skv).sum())
+    else:
+        pairs = sq * skv
+    flops = 4 * d * pairs * bh
+    t_ops = flops / BF16_OPS_PER_S
+    t_bytes = (2 * bh * sq * d + 2 * bh * skv * d) * itemsize / HBM_BYTES_PER_S
+    return flops, 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def lm_kernel_phase(seed, dev, on_card, long_seq):
+    """flash_attention against attention_ref on the same inputs: the
+    reference's test shapes and two with SQ < 8 (f32 at atol 2e-5, bf16 at
+    3e-2, causal and not), qwen2.5-3b's shape (BH 16, D 128, bf16, causal)
+    up to S = 4,096, then at the path's shape `long_seq`, where the plain
+    version runs in blocks of query rows; the kernel timed there beside the
+    plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def operands(bh, sq, skv, d, dtype):
+        return tuple(torch.randn((bh, s, d), generator=gen, device=dev).to(dtype)
+                     for s in (sq, skv, skv))
+
+    cases = [(shape, causal, dtype) for dtype in (torch.float32, torch.bfloat16)
+             for shape in FLASH_TEST_SHAPES + FLASH_SHORT_SHAPES for causal in (True, False)]
+    qwen_lengths = (32, 512, 2048, 4096) if on_card else (32,)
+    cases += [((16, s, s, 128), True, torch.bfloat16) for s in qwen_lengths]
+    rows, bf16_err = [], 0.0
+    for shape, causal, dtype in cases:
+        q, k, v = operands(*shape, dtype)
+        got = flash_attention(q, k, v, causal=causal)
+        want = attention_ref(q, k, v, causal=causal)
+        atol = 2e-5 if dtype == torch.float32 else 3e-2
+        err = float((got.float() - want.float()).abs().max())
+        if not err <= atol:
+            fail(f"flash_attention {shape} causal={causal} {dtype}: max abs err {err} > {atol}")
+        if dtype == torch.bfloat16:
+            bf16_err = max(bf16_err, err)
+        rows.append(dict(shape=shape, causal=causal, dtype=str(dtype), max_abs_err=err,
+                         atol=atol))
+    for row in rows:
+        print("  " + json.dumps(row))
+    bh, s, d = 16, long_seq, 128
+    chunk = PLAIN_CHUNK if on_card else 64
+    q, k, v = operands(bh, s, s, d, torch.bfloat16)
+    flops, bound, bound_by = flash_bound_ms(bh, s, s, d, True, 2)
+    got = flash_attention(q, k, v, causal=True)
+    want = attention_ref_in_chunks(q, k, v, chunk)
+    err, excess, rel_rms = flash_vs_plain(got, want, chunk)
+    print(f"  flash_attention bf16 BH={bh} S={s} D={d} causal against attention_ref in "
+          f"blocks of {chunk} query rows: max abs err {err:.3e}, max of |err| - "
+          f"{FLASH_RTOL:.3e}·|plain| {excess:.3e} (atol {FLASH_ATOL:.3e}), worst block's "
+          f"rms err / rms plain {rel_rms:.3e} (limit {FLASH_REL_RMS:.0e})")
+    if not excess <= FLASH_ATOL or not rel_rms <= FLASH_REL_RMS:
+        fail(f"flash_attention at S={s} disagrees with attention_ref")
+    if not on_card:
+        return None
+    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), n=10)
+    plain_ms = cuda_ms(lambda: attention_ref_in_chunks(q, k, v, chunk), n=2, warm=1)
+    del want
+    # SDPA takes [B, H, S, D]; on 3-d operands it falls back to its
+    # materializing path. Timed as the library call, never used by the port
+    q4, k4, v4 = (x.view(1, bh, s, d) for x in (q, k, v))
+    lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)  # noqa: E731
+    lib_err = float((got.float() - lib()[0].float()).abs().max())
+    lib_ms = cuda_ms(lib, n=10)
+    print(f"  flash_attention bf16 BH={bh} S={s} D={d} causal: {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), bound {bound:.4f} ms ({bound_by}, "
+          f"{flops:.3e} FLOPs at {BF16_OPS_PER_S:.3e}/s), plain in blocks {plain_ms:.4f} ms, "
+          f"SDPA {lib_ms:.4f} ms (max abs diff vs SDPA {lib_err:.3e})")
+    return dict(name="flash_attention.bf16", route="cuda", source=FLASH_SOURCE,
+                replaces=FLASH_REPLACES, launches=0, max_abs_err=max(bf16_err, err), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
+
+
+def top2_gap(logits):
+    top = logits.topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def lm_phase(seed, dev, on_card, seq, check_seq, trace):
+    """qwen2.5-3b at full width and depth (smoke size on the CPU): prefill
+    through the kernel, kernel against plain end to end, and serving. With
+    `trace`, one more prefill and one more decode step under the profiler."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.models import build
+    from repro_torch.serve import ServeEngine
+    cfg = ARCHS["qwen2.5-3b"] if on_card else ARCHS["qwen2.5-3b"].smoke()
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    # what earlier phases still hold: the LM's own peak is counted above it
+    held = torch.cuda.memory_allocated() if on_card else 0
+    t = time.perf_counter()
+    model = build(cfg, device=dev, seed=seed)
+    sync()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  build({cfg.name}): {n_params:,} parameters, {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {time.perf_counter() - t:.3f} s")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    info = dict(model=cfg.name, parameters=n_params, seq=seq)
+    with torch.inference_mode():
+        # 1. prefill through the kernel, the second call timed
+        toks = torch.randint(0, cfg.vocab, (1, seq), generator=gen, device=dev)
+        model({"tokens": toks}, impl="kernel", last_only=True)
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        t = time.perf_counter()
+        logits, _ = model({"tokens": toks}, impl="kernel", last_only=True)
+        sync()
+        secs = time.perf_counter() - t
+        launches = flash_attention.launches
+        if tuple(logits.shape) != (1, 1, cfg.vocab_padded) or not bool(torch.isfinite(logits).all()):
+            fail(f"prefill logits: shape {tuple(logits.shape)} or non-finite values")
+        if on_card and launches != cfg.n_layers:
+            fail(f"prefill launched flash_attention {launches} times, not {cfg.n_layers}")
+        info.update(prefill_s=secs, prefill_tokens_per_s=seq / secs, flash_launches=launches,
+                    peak_gb=(torch.cuda.max_memory_allocated() - held) / 1e9 if on_card
+                    else None, held_before_gb=held / 1e9 if on_card else None,
+                    weights_gb=sum(p.numel() * p.element_size()
+                                   for p in model.parameters()) / 1e9)
+
+        # 2. kernel against plain, end to end
+        lk, _ = model({"tokens": toks[:, :check_seq]}, impl="kernel", last_only=True)
+        lr, _ = model({"tokens": toks[:, :check_seq]}, impl="ref", last_only=True)
+        err = float((lk - lr).abs().max())
+        info.update(check_seq=check_seq, kernel_vs_ref_max_abs=err,
+                    kernel_vs_ref_mean_abs=float((lk - lr).abs().mean()),
+                    logit_max_abs=float(lr.abs().max()), logit_std=float(lr.std()))
+        print("  " + json.dumps(info))
+        if not err <= LM_LOGIT_ATOL:
+            fail(f"kernel vs ref logits at S={check_seq}: max abs diff {err} > {LM_LOGIT_ATOL}")
+
+        # 3. serve, and the prefill forward against the decode chain
+        prompts = np.random.default_rng(seed).integers(0, cfg.vocab, (4, 32)).astype(np.int32)
+        engine = ServeEngine(model, max_len=64, batch_size=4)
+        engine.generate(prompts, new_tokens=2)          # warm-up
+        sync()
+        t = time.perf_counter()
+        res = engine.generate(prompts, new_tokens=16)
+        sync()
+        serve_s = time.perf_counter() - t
+        steps = prompts.shape[1] + 16 - 1               # decode_step calls
+        if res.tokens.shape != (4, 48) or not np.array_equal(res.tokens[:, :32], prompts):
+            fail(f"ServeEngine returned {res.tokens.shape} or changed the prompts")
+        pt = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+        lf, _ = model({"tokens": pt}, impl="kernel", last_only=True)
+        cache = model.init_cache(4, 64)
+        for i in range(32):
+            ld, cache = model.decode_step(pt[:, i:i + 1], cache, i)
+        derr = float((lf[:, 0] - ld).abs().max())
+        gap = top2_gap(lf[:, 0])
+        clear = gap > LM_LOGIT_ATOL
+        same = lf[:, 0].argmax(-1) == ld.argmax(-1)
+        chain_first = ld.argmax(-1).cpu().numpy()
+        serve = dict(prompts=list(prompts.shape), new_tokens=16, serve_s=serve_s,
+                     decode_steps=steps, ms_per_decode_step=1e3 * serve_s / steps,
+                     prefill_vs_decode_max_abs=derr, top2_gaps=gap.tolist(),
+                     argmax_equal=same.tolist(),
+                     first_token_equal=bool(np.array_equal(res.tokens[:, 32], chain_first)))
+        print("  " + json.dumps(serve))
+        if not derr <= LM_LOGIT_ATOL:
+            fail(f"prefill vs decode chain at position 31: max abs diff {derr} > {LM_LOGIT_ATOL}")
+        if not bool(same[clear].all()):
+            fail("prefill and decode chain pick other tokens where the top-2 gap is clear")
+        if not serve["first_token_equal"]:
+            fail("ServeEngine's first new token differs from the decode chain's argmax")
+        if trace:
+            tr = trace_run(lambda: model({"tokens": toks}, impl="kernel", last_only=True))
+            print("  " + json.dumps(dict(call="prefill", untraced_ms=secs * 1e3, **tr)))
+            tr = trace_run(lambda: model.decode_step(ld.argmax(-1)[:, None], cache, 32))
+            print("  " + json.dumps(dict(call="decode_step", untraced_ms=serve[
+                "ms_per_decode_step"], **tr)))
+    info.update(serve)
+    return info
+
+
+# --------------------------------------------------------------------------
+# tc: the dense triangle count
+# --------------------------------------------------------------------------
+
+def scipy_triangles(g):
+    """(L @ L) ⊙ L summed over the CSR of the strict-lower closure, exact."""
+    import scipy.sparse as sp
+    src = g.edge_src.cpu().numpy()
+    dst = g.indices.cpu().numpy()
+    lo, hi = np.minimum(src, dst), np.maximum(src, dst)
+    keep = lo != hi
+    n = g.num_nodes
+    lower = sp.csr_matrix((np.ones(int(keep.sum()), np.int64), (hi[keep], lo[keep])),
+                          shape=(n, n))
+    lower.sum_duplicates()
+    lower.data[:] = 1
+    return int((lower @ lower).multiply(lower).sum())
+
+
+def tc_phase(seed, dev, on_card, scale):
+    import torch
+    from repro_torch.graph import rmat
+    from repro_torch.kernels.tc_matmul.kernel import tc_matmul
+    from repro_torch.kernels.tc_matmul.ops import count_triangles_dense, prepare_lower
+    from repro_torch.kernels.tc_matmul.ref import tc_matmul_ref
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t = time.perf_counter()
+    g = rmat(scale, edge_factor=16, seed=seed, device=dev)
+    lower = prepare_lower(g)
+    sync()
+    n = lower.shape[0]
+    setup_s = time.perf_counter() - t
+    want = scipy_triangles(g)
+    tc_matmul.launches = 0
+    t = time.perf_counter()
+    got = count_triangles_dense(lower)
+    sync()
+    path_s = time.perf_counter() - t
+    launches = tc_matmul.launches
+    if on_card and launches == 0:
+        fail("count_triangles_dense launched no tc_matmul kernel")
+    if got.dtype != torch.int32 or int(got) != want:
+        fail(f"count_triangles_dense = {int(got)} ({got.dtype}), scipy counts {want}")
+    plain = tc_matmul_ref(lower if want < 2**24 else lower.double())
+    if int(plain) != want:
+        fail(f"tc_matmul_ref = {float(plain)}, scipy counts {want}")
+    info = dict(scale=scale, N=n, E=g.num_edges, triangles=want, setup_s=setup_s,
+                path_s=path_s, launches=launches)
+    print("  " + json.dumps(info))
+    if not on_card:
+        return None
+    dense_flops = 2 * n ** 3
+    need_flops = 2 * (n * (n - 1) * (n - 2) // 6)     # triples i > k > j
+    t_ops = need_flops / BF16_OPS_PER_S
+    t_bytes = n * n * 4 / HBM_BYTES_PER_S
+    bound, bound_by = 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    lb = lower.bfloat16()
+    ms = cuda_ms(lambda: tc_matmul(lower), n=5)
+    plain_ms = cuda_ms(lambda: tc_matmul_ref(lower), n=5)
+    lib_ms = cuda_ms(lambda: ((lb @ lb) * lb).sum(), n=5)
+    print(f"  tc_matmul f32 N={n}: {ms:.4f} ms, bound {bound:.4f} ms ({bound_by}: "
+          f"{need_flops:.3e} FLOPs of the strict-lower triples at {BF16_OPS_PER_S:.3e}/s; "
+          f"the dense form's {dense_flops:.3e} FLOPs would take "
+          f"{1e3 * dense_flops / BF16_OPS_PER_S:.4f} ms), plain {plain_ms:.4f} ms, "
+          f"bf16 matmul-and-mask {lib_ms:.4f} ms")
+    return dict(name="tc_matmul.f32", route="cuda", source=TC_SOURCE, replaces=TC_REPLACES,
+                launches=launches, max_abs_err=float(abs(int(got) - want)), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22, help="RMAT scale (N = 2^scale)")
@@ -408,18 +750,40 @@ def main(argv=None):
     t0 = time.perf_counter()
     check_results(g, results, t0)
 
-    if not on_card:
-        print("rehearsal finished: plain versions on the CPU — not a smoke run")
-        sys.exit(3)
-
     # 7. trace (optional)
-    if args.trace:
+    if on_card and args.trace:
         t0 = time.perf_counter()
         for (name, direction, params), info in zip(RUNS, infos):   # the cuda runs
-            tr = trace_run(bounds[(name, direction)], params)
+            bound = bounds[(name, direction)]
+            tr = trace_run(lambda: bound(**params))
             print("  " + json.dumps(dict(program=name, direction=direction,
                                          untraced_ms=info["seconds"] * 1e3, **tr)))
         phase("trace", t0, "torch.profiler, one call per cuda run")
+    del g, ell, results, bounds
+    dev = args.device
+
+    # 8. lm-kernels
+    lm_seq = 32768 if on_card else 256
+    t0 = time.perf_counter()
+    flash = lm_kernel_phase(args.seed, dev, on_card, lm_seq)
+    phase("lm-kernels", t0, "flash_attention == attention_ref"
+          + (f"; timed at BH=16 S={lm_seq} D=128" if on_card else ""))
+
+    # 9. lm
+    t0 = time.perf_counter()
+    lm = lm_phase(args.seed, dev, on_card, lm_seq, 2048 if on_card else 128,
+                  on_card and args.trace)
+    phase("lm", t0, f"prefill {lm['prefill_s']:.3f} s ({lm['prefill_tokens_per_s']:.0f} "
+          f"tokens/s), serve {lm['ms_per_decode_step']:.3f} ms per decode step")
+
+    # 10. tc
+    t0 = time.perf_counter()
+    tc = tc_phase(args.seed, dev, on_card, 14 if on_card else 8)
+    phase("tc", t0, "count_triangles_dense == scipy == tc_matmul_ref")
+
+    if not on_card:
+        print("rehearsal finished: plain versions on the CPU — not a smoke run")
+        sys.exit(3)
 
     # the kernels of the path: one full pull sweep of the SpMV form over the
     # reverse view's buckets (the sum of the per-bucket rows), launches from
@@ -441,6 +805,8 @@ def main(argv=None):
             bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in sweep)
                       else "operations"),
             library_ms=sum(lib) if None not in lib else None))
+    flash["launches"] = lm["flash_launches"]
+    kernels += [flash, tc]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -1,8 +1,12 @@
 """Build the port's CUDA kernels and load them with ctypes.
 
-Each source under `kernels/*/csrc/` is compiled by `nvcc` into a shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds), for `sm_90a`, on first use — never at import. The library lands
+Three sources, one library each: `ell_spmv/csrc/ell_spmv.cu` (the graph
+path's semiring SpMV/SpMM), `flash_attention/csrc/flash_attention.cu` (the
+LM prefill's attention, bf16 on mma.sync and an f32 FMA form, D in
+{32, 64, 128}) and `tc_matmul/csrc/tc_matmul.cu` (the dense triangle
+count). Each is compiled by `nvcc` into a shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), for `sm_90a`,
+on first use — never at import. The library lands
 in `build/kernels/` at the root of the checkout (listed in `.gitignore`),
 named by a hash of the source and the flags, so an edited source rebuilds
 and an unchanged one is reused. `build_all()` starts one `nvcc` per source,
@@ -23,7 +27,8 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-SOURCES = {"ell_spmv": _KERNELS / "ell_spmv" / "csrc" / "ell_spmv.cu"}
+SOURCES = {name: _KERNELS / name / "csrc" / f"{name}.cu"
+           for name in ("ell_spmv", "flash_attention", "tc_matmul")}
 
 _LOADED: dict = {}   # name -> ctypes.CDLL, loaded once per process
 

@@ -1,0 +1,178 @@
+"""GQA attention block: prefill (materialized, chunked or flash kernel) and
+decode (KV cache) paths.
+
+PyTorch counterpart of `repro.models.attention`. Implementation selection:
+  * 'ref'     — materialized f32 scores; small shapes
+  * 'chunked' — loops over query and kv chunks with online softmax: the
+                plain-torch mirror of the flash kernel, O(chunk·S) memory
+  * 'kernel'  — kernels/flash_attention (the card's prefill path)
+
+The decode path updates its KV cache in place (the reference returns a new
+cache; here the same dict comes back, written at its `length` slot).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..kernels.flash_attention.ops import gqa_attention
+from ..kernels.flash_attention.ref import attention_ref
+from .layers import RMSNorm, apply_rope, dense_init
+
+NEG_INF = -1e30
+IMPLS = ("ref", "chunked", "kernel")
+
+
+class Attention(nn.Module):
+    """wq [d, H·hd], wk/wv [d, Hkv·hd], wo [H·hd, d]; bq/bk/bv with
+    `cfg.qkv_bias`; q_norm/k_norm with `cfg.qk_norm`."""
+
+    def __init__(self, cfg, dtype, *, generator: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        dev = generator.device
+        self.wq = nn.Parameter(dense_init((d, h * hd), dtype, generator=generator))
+        self.wk = nn.Parameter(dense_init((d, hkv * hd), dtype, generator=generator))
+        self.wv = nn.Parameter(dense_init((d, hkv * hd), dtype, generator=generator))
+        self.wo = nn.Parameter(dense_init((h * hd, d), dtype, generator=generator))
+        if cfg.qkv_bias:
+            self.bq = nn.Parameter(torch.zeros(h * hd, dtype=dtype, device=dev))
+            self.bk = nn.Parameter(torch.zeros(hkv * hd, dtype=dtype, device=dev))
+            self.bv = nn.Parameter(torch.zeros(hkv * hd, dtype=dtype, device=dev))
+        if cfg.qk_norm:
+            self.q_norm = RMSNorm(hd, dtype, dev)
+            self.k_norm = RMSNorm(hd, dtype, dev)
+
+    def forward(self, x, positions, *, causal=True, impl="ref", kv=None):
+        return attention_block(self, x, positions, causal=causal, impl=impl, kv=kv)
+
+
+def _project_qkv(p: Attention, x, positions):
+    cfg = p.cfg
+    b, s, _ = x.shape
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = x @ p.wq
+    k = x @ p.wk
+    v = x @ p.wv
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, hkv, hd)
+    v = v.reshape(b, s, hkv, hd)
+    if cfg.qk_norm:
+        q = p.q_norm(q, cfg.norm_eps)
+        k = p.k_norm(k, cfg.norm_eps)
+    if positions is not None:   # rope (decoder); None for encoder w/o rope
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 512,
+                      k_chunk: int = 1024):
+    """[B,H,S,D] online-softmax attention, O(chunk·S) live memory. Products
+    in f32 (exact for bf16 operands), P cast to v's dtype before P·V, as
+    the reference. SQ and SKV must be multiples of their chunks."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    q_chunk = min(q_chunk, sq)
+    k_chunk = min(k_chunk, skv)
+    if sq % q_chunk or skv % k_chunk:
+        raise ValueError(f"SQ={sq} and SKV={skv} must be multiples of the chunks "
+                         f"{q_chunk} and {k_chunk}")
+    scale = 1.0 / (d ** 0.5)
+    offset = skv - sq
+    out = torch.empty_like(q)
+    for qi in range(sq // q_chunk):
+        qb = q[:, :, qi * q_chunk:(qi + 1) * q_chunk].float()
+        m = torch.full((b, h, q_chunk, 1), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, h, q_chunk, 1), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, h, q_chunk, d), dtype=torch.float32, device=q.device)
+        for ki in range(skv // k_chunk):
+            ks = k[:, :, ki * k_chunk:(ki + 1) * k_chunk]
+            vs = v[:, :, ki * k_chunk:(ki + 1) * k_chunk]
+            s = (qb @ ks.float().transpose(-1, -2)) * scale
+            if causal:
+                rows = qi * q_chunk + offset + torch.arange(q_chunk, device=q.device)[:, None]
+                cols = ki * k_chunk + torch.arange(k_chunk, device=q.device)[None, :]
+                s = torch.where(rows >= cols, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            pr = torch.exp(s - m_new)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + pr.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + pr.to(vs.dtype).float() @ vs.float()
+            m = m_new
+        out[:, :, qi * q_chunk:(qi + 1) * q_chunk] = (acc / l.clamp_min(1e-30)).to(q.dtype)
+    return out
+
+
+def _repeat_kv(k, groups):
+    return k.repeat_interleave(groups, dim=1)
+
+
+def attention_block(p: Attention, x, positions, *, causal=True, impl="ref", kv=None):
+    """Self-attention. kv: optional (k_ext, v_ext) [B, S, Hkv, D] to attend
+    over instead (cross-attention); x provides queries only in that case."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    cfg = p.cfg
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, positions)
+    if kv is not None:
+        k, v = kv
+    q = q.transpose(1, 2)                       # [B,H,S,D]
+    k = k.transpose(1, 2)
+    v = v.transpose(1, 2)
+    groups = cfg.n_heads // cfg.n_kv_heads
+    if impl == "kernel":
+        o = gqa_attention(q, k, v, causal=causal)   # handles GQA repeat
+    else:
+        k = _repeat_kv(k, groups)
+        v = _repeat_kv(v, groups)
+        if impl == "chunked":
+            o = chunked_attention(q, k, v, causal=causal)
+        else:
+            bh = b * cfg.n_heads
+            o = attention_ref(q.reshape(bh, s, cfg.hd), k.reshape(bh, -1, cfg.hd),
+                              v.reshape(bh, -1, cfg.hd), causal=causal)
+            o = o.reshape(b, cfg.n_heads, s, cfg.hd)
+    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
+    return o @ p.wo
+
+
+def attention_decode(p: Attention, x, cache: dict, pos: int):
+    """One-token decode with a static KV cache, updated in place.
+
+    x: [B, 1, d]; cache: dict(k, v: [B, S_cache, Hkv, D], length: int);
+    pos: the current position. Writes the new k, v at slot `length`,
+    attends over slots 0..length and returns (out [B, 1, d], cache) with
+    `length` advanced by one — the same dict."""
+    cfg = p.cfg
+    b = x.shape[0]
+    positions = torch.full((b, 1), int(pos), dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _project_qkv(p, x, positions)
+    length = cache["length"]
+    cache["k"][:, length] = k_new[:, 0]
+    cache["v"][:, length] = v_new[:, 0]
+    groups = cfg.n_heads // cfg.n_kv_heads
+    qh = q.transpose(1, 2)                                     # [B,H,1,D]
+    kh = _repeat_kv(cache["k"].transpose(1, 2), groups)         # [B,H,S,D]
+    vh = _repeat_kv(cache["v"].transpose(1, 2), groups)
+    scale = 1.0 / (cfg.hd ** 0.5)
+    s = (qh.float() @ kh.float().transpose(-1, -2)) * scale
+    valid = torch.arange(kh.shape[2], device=x.device) <= length
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1).to(vh.dtype)
+    o = w @ vh
+    o = o.transpose(1, 2).reshape(b, 1, cfg.n_heads * cfg.hd)
+    cache["length"] = length + 1
+    return o @ p.wo, cache
+
+
+def init_kv_cache(cfg, batch, max_len, dtype, device):
+    """dict(k, v: zeros [B, max_len, Hkv, D], length: 0)."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "length": 0}

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, against its plain version.
+"""The port's CUDA kernels on the card, against their plain versions.
 
 Marked `gpu`: without a CUDA device every test here skips (the decision is
 made in a fixture, never at import). This file imports neither jax nor the
@@ -20,6 +20,11 @@ from repro_torch.graph import INF_I32, preferential_attachment
 from repro_torch.kernels.ell_spmv import ops
 from repro_torch.kernels.ell_spmv.kernel import ell_spmv
 from repro_torch.kernels.ell_spmv.ref import ell_spmv_ref
+from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention.ops import gqa_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.tc_matmul.kernel import tc_matmul
+from repro_torch.kernels.tc_matmul.ref import tc_matmul_ref
 
 
 @pytest.fixture
@@ -110,3 +115,129 @@ def test_cuda_backend_matches_local_on_the_card(cuda, name):
                                  schedule=Schedule(direction="pull")).bind(g)(**params)
         assert torch.equal(pinned["dist"], want["dist"])
         assert ops.relax_minplus.push_steps == 0 and ops.relax_minplus.pull_steps > 0
+
+
+# --- flash_attention ----------------------------------------------------------
+
+def qkv(bh, sq, skv, d, dtype, device, seed=0):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return tuple(torch.randn((bh, s, d), generator=gen, device=device).to(dtype)
+                 for s in (sq, skv, skv))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,sq,skv,d", [
+    (2, 128, 128, 64), (1, 256, 256, 32), (3, 128, 256, 64), (2, 64, 512, 128),
+    (4, 32, 32, 128), (2, 32, 96, 64), (1, 100, 100, 32), (2, 8, 640, 128),
+    (2, 4, 4, 64), (3, 1, 256, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain_version(cuda, bh, sq, skv, d, causal, dtype):
+    """f32 at atol 2e-5, bf16 at 3e-2: the reference's own tolerances."""
+    q, k, v = qkv(bh, sq, skv, d, dtype, cuda)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=2e-5 if dtype == torch.float32 else 3e-2)
+
+
+def gqa_operands(sq, device):
+    q = qkv(2 * 8, sq, sq, 64, torch.bfloat16, device)[0].reshape(2, 8, sq, 64)
+    k, v = (t.reshape(2, 2, 128, 64) for t in qkv(2 * 2, 128, 128, 64, torch.bfloat16,
+                                                  device, seed=1)[1:])
+    return q, k, v
+
+
+def gqa_plain(q, k, v):
+    """The plain version of gqa_attention: KV heads repeated, attention_ref."""
+    b, hq, sq, d = q.shape
+    k, v = (t.repeat_interleave(hq // t.shape[1], dim=1).reshape(b * hq, -1, d)
+            for t in (k, v))
+    return attention_ref(q.reshape(b * hq, sq, d), k, v, causal=True).reshape(q.shape)
+
+
+@pytest.mark.gpu
+def test_gqa_attention_goes_through_the_kernel(cuda):
+    q, k, v = gqa_operands(128, cuda)
+    before = flash_attention.launches
+    got = gqa_attention(q, k, v, causal=True)
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), gqa_plain(q, k, v).float(), rtol=0, atol=3e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq", [1, 4])
+def test_gqa_attention_short_queries_go_through_the_kernel(cuda, sq):
+    """SQ < 8, which the reference sends to its plain version: the CUDA
+    kernel masks its ragged edge and takes it."""
+    q, k, v = gqa_operands(sq, cuda)
+    before = flash_attention.launches
+    got = gqa_attention(q, k, v, causal=True)
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), gqa_plain(q, k, v).float(), rtol=0, atol=3e-2)
+
+
+@pytest.mark.gpu
+def test_gqa_attention_plain_version_raises_on_the_card(cuda):
+    q, k, v = gqa_operands(128, cuda)
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        gqa_attention(q, k, v, use_kernel=False)
+
+
+@pytest.mark.gpu
+def test_flash_attention_raises_on_what_it_does_not_take(cuda):
+    q, k, v = qkv(1, 64, 64, 96, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, k, v)
+    q, k, v = qkv(1, 64, 64, 64, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v)
+
+
+# --- tc_matmul ------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,block,p", [(64, 32, 0.1), (128, 128, 0.1), (384, 128, 0.05),
+                                       (200, 100, 0.2), (1024, 128, 0.02)])
+def test_tc_matmul_matches_plain_version(cuda, n, block, p):
+    """0/1 operands: every count is an integer below 2^24, so exact."""
+    rng = np.random.default_rng(n)
+    lower = torch.from_numpy(np.tril((rng.random((n, n)) < p).astype(np.float32), -1)).to(cuda)
+    before = tc_matmul.launches
+    got = tc_matmul(lower, block=block)
+    torch.cuda.synchronize()
+    assert tc_matmul.launches == before + 1
+    assert got.dtype == torch.float32 and got.ndim == 0
+    assert float(got) == float(tc_matmul_ref(lower)) > 0
+
+
+@pytest.mark.gpu
+def test_tc_matmul_reads_only_the_strict_lower_triangle(cuda):
+    rng = np.random.default_rng(5)
+    a = (rng.random((256, 256)) < 0.1).astype(np.float32)
+    full = torch.from_numpy(a).to(cuda)
+    lower = torch.from_numpy(np.tril(a, -1)).to(cuda)
+    assert float(tc_matmul(full)) == float(tc_matmul_ref(lower))
+
+
+# --- the LM on the card -----------------------------------------------------------
+
+@pytest.mark.gpu
+def test_lm_kernel_path_matches_plain_path_on_the_card(cuda):
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    cfg = dataclasses.replace(ARCHS["qwen2.5-3b"].smoke(), dtype="float32")
+    m = build(cfg, device=cuda, seed=0)
+    toks = torch.randint(0, cfg.vocab, (2, 64), device=cuda)
+    with torch.inference_mode():
+        before = flash_attention.launches
+        got, _ = m({"tokens": toks}, impl="kernel", last_only=True)
+        assert flash_attention.launches == before + cfg.n_layers
+        want, _ = m({"tokens": toks}, impl="ref")
+    torch.testing.assert_close(got[:, 0], want[:, -1], rtol=0, atol=1e-4)

@@ -47,10 +47,15 @@ def test_cpu_rehearsal_checks_every_run_and_is_not_a_smoke_run(no_card):
     assert all(i["launches"] == 0 for i in runs)   # the CPU never counts a launch
 
 
-def test_bound_counts_each_operand_once():
+def load_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_bound_counts_each_operand_once():
+    smoke = load_smoke()
     r, d, m, b = 1000, 8, 300, 32
     want = (2 * r * d + m * b + r * b) * 4 / smoke.HBM_BYTES_PER_S * 1e3
     ms, by = smoke.bound_ms(r, d, m, b)
@@ -58,3 +63,17 @@ def test_bound_counts_each_operand_once():
     assert ms == pytest.approx(want, rel=1e-12)
     # fewer x rows reached, fewer bytes: the bound never counts unread rows
     assert smoke.bound_ms(r, d, m // 2, b)[0] < ms
+
+
+@pytest.mark.parametrize("sq,skv,chunk", [(96, 96, 32), (64, 160, 24), (50, 50, 64)])
+def test_plain_attention_in_blocks_of_query_rows_is_attention_ref(sq, skv, chunk):
+    """The plain version the smoke runs at 32K, one block of query rows at a
+    time, is attention_ref of the whole: causal offsets included."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    smoke = load_smoke()
+    gen = torch.Generator().manual_seed(sq + skv)
+    q, k, v = (torch.randn((2, s, 32), generator=gen) for s in (sq, skv, skv))
+    got = smoke.attention_ref_in_chunks(q, k, v, chunk)
+    torch.testing.assert_close(got, attention_ref(q, k, v, causal=True), rtol=1e-6, atol=1e-6)
+    err, excess, rel_rms = smoke.flash_vs_plain(got, got, chunk)
+    assert err == 0 and rel_rms == 0 and excess <= 0
