@@ -11,7 +11,9 @@ Phases, each printed with its own seconds; any failure exits non-zero:
                power limit;
   2. build   — nvcc builds every kernel of the port from the checkout's
                sources (one nvcc per source, all at once), printing the
-               -Xptxas -v report;
+               -Xptxas -v report, then one line per kernel of the two
+               tensor-core libraries: registers, shared memory (static, and
+               the dynamic bytes its launch asks for) and spills;
   3. graph   — rmat(scale, edge_factor=16, seed=0) on the card (scale 22:
                4,194,304 vertices, 67,108,864 sampled edges before dedup,
                the size of the paper's soc-LiveJournal1) and its reverse
@@ -38,12 +40,13 @@ Phases, each printed with its own seconds; any failure exits non-zero:
                time; one stream, so kernels do not overlap) and the traced
                call's wall time beside the untraced one (the tracing cost);
                phase 9 then traces one prefill and one decode step the same
-               way;
+               way, and phase 10 three tc_matmul calls (pack and products);
   8. lm-kernels — `flash_attention` against `attention_ref` on the same
                seeded inputs: the reference's test shapes and two with
                SQ < 8 (f32 at atol 2e-5, bf16 at 3e-2, causal and not) and
                qwen2.5-3b's shape (BH 16, D 128, bf16, causal) at S = 32,
-               512, 2048 and 4096; then at the path's shape, BH 16, S =
+               512, 2048 and 4096, then three ragged shapes (SQ and SKV off
+               the 128-row tiles); then at the path's shape, BH 16, S =
                32,768, against `attention_ref` run in blocks of 1,024 query
                rows (whole, its f32 scores would be 68.7 GB): elementwise
                at rtol = atol = 2^-7 and each block's rms error within 1% of
@@ -59,8 +62,10 @@ Phases, each printed with its own seconds; any failure exits non-zero:
                prefill forward held against the decode chain at position 31;
  10. tc      — rmat(14, edge_factor=16) → prepare_lower → count_triangles_dense
                on the card (N = 16,384), equal to a scipy count on the host
-               and to `tc_matmul_ref`; the kernel timed beside its bound,
-               the plain version and a bf16 matmul-and-mask.
+               and to `tc_matmul_ref`; the kernel (int8 wgmma) timed beside
+               its bound (the strict-lower products at the int8 rate, the
+               bf16 figure printed beside it), the plain version and a bf16
+               matmul-and-mask.
 
 The line before the last is {"kernels": [...]} (ell_spmv's two semirings,
 flash_attention.bf16 and tc_matmul.f32); the last line is {"ok": true,
@@ -74,6 +79,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -84,6 +90,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM bf16 on the tensor cores, dense
+INT8_OPS_PER_S = 1979e12      # H100 SXM int8 on the tensor cores, dense
 SOURCE = "src/repro_torch/kernels/ell_spmv/csrc/ell_spmv.cu"
 REPLACES = "src/repro/kernels/ell_spmv/kernel.py:76"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
@@ -224,6 +231,46 @@ def kernel_phase(ell, n, seed):
             tag = f"random R={r} D={d} B={b}"
             rows.append(check_kernel(tag, cols, vi, xi, "minplus", r + 1, timed=False))
             rows.append(check_kernel(tag, cols, vf, xf, "plustimes", r + 1, timed=False))
+    return rows
+
+
+def kernel_name(mangled):
+    """`tc_wgmma`, `flash_fwd_bf16<128>`: the last name of an Itanium-mangled
+    function and its one integer template argument, if any."""
+    m = re.match(r"_ZN?", mangled)
+    rest, names = mangled[m.end():] if m else mangled, []
+    while rest[:1].isdigit():
+        n = int(re.match(r"\d+", rest).group())
+        digits = len(str(n))
+        names.append(rest[digits:digits + n])
+        rest = rest[digits + n:]
+    arg = re.match(r"ILi(\d+)E", rest)
+    return (names[-1] if names else mangled) + (f"<{arg.group(1)}>" if arg else "")
+
+
+def ptxas_summary(logs):
+    """One row per kernel of the two tensor-core libraries from nvcc's
+    -Xptxas -v report: registers, static shared memory, spills, and the
+    dynamic shared memory its launch asks for (which ptxas does not see)."""
+    from repro_torch.kernels.flash_attention.kernel import _library as flash_library
+    from repro_torch.kernels.tc_matmul.kernel import _library as tc_library
+    dynamic = {"tc_wgmma": tc_library().tc_matmul_smem_bytes()}
+    for d in (32, 64, 128):
+        dynamic[f"flash_fwd_bf16<{d}>"] = flash_library().flash_attention_bf16_smem_bytes(d)
+    def num(pattern, block):
+        m = re.search(pattern, block)
+        return int(m.group(1)) if m else 0
+
+    rows = []
+    for lib in ("tc_matmul", "flash_attention"):
+        for block in logs.get(lib, "").split("Compiling entry function '")[1:]:
+            name = kernel_name(block.split("'")[0])
+            rows.append(dict(library=lib, kernel=name,
+                             registers=num(r"Used (\d+) registers", block),
+                             static_smem_bytes=num(r"(\d+) bytes smem", block),
+                             dynamic_smem_bytes=dynamic.get(name, 0),
+                             spill_store_bytes=num(r"(\d+) bytes spill stores", block),
+                             spill_load_bytes=num(r"(\d+) bytes spill loads", block)))
     return rows
 
 
@@ -371,6 +418,8 @@ FLASH_TEST_SHAPES = ((2, 128, 128, 64), (1, 256, 256, 32), (3, 128, 256, 64),
 # SQ < 8, which the reference leaves to its plain version (a TPU tiling
 # limit); the CUDA kernel takes it, as gqa_attention sends it there
 FLASH_SHORT_SHAPES = ((2, 4, 4, 64), (3, 1, 256, 128))
+# SQ and SKV off the kernel's 128-row tiles (bq = SQ, bk = SKV)
+FLASH_RAGGED_SHAPES = ((3, 100, 100, 64), (2, 130, 200, 128), (2, 1, 640, 32))
 # the kernel against the plain version at the path's shape, bf16:
 # elementwise |kernel - plain| <= FLASH_RTOL·|plain| + FLASH_ATOL, and per
 # block of query rows rms(kernel - plain) <= FLASH_REL_RMS · rms(plain)
@@ -444,13 +493,15 @@ def lm_kernel_phase(seed, dev, on_card, long_seq):
                      for s in (sq, skv, skv))
 
     cases = [(shape, causal, dtype) for dtype in (torch.float32, torch.bfloat16)
-             for shape in FLASH_TEST_SHAPES + FLASH_SHORT_SHAPES for causal in (True, False)]
+             for shape in FLASH_TEST_SHAPES + FLASH_SHORT_SHAPES + FLASH_RAGGED_SHAPES
+             for causal in (True, False)]
     qwen_lengths = (32, 512, 2048, 4096) if on_card else (32,)
     cases += [((16, s, s, 128), True, torch.bfloat16) for s in qwen_lengths]
     rows, bf16_err = [], 0.0
     for shape, causal, dtype in cases:
         q, k, v = operands(*shape, dtype)
-        got = flash_attention(q, k, v, causal=causal)
+        blocks = dict(bq=shape[1], bk=shape[2]) if shape in FLASH_RAGGED_SHAPES else {}
+        got = flash_attention(q, k, v, causal=causal, **blocks)
         want = attention_ref(q, k, v, causal=causal)
         atol = 2e-5 if dtype == torch.float32 else 3e-2
         err = float((got.float() - want.float()).abs().max())
@@ -619,7 +670,7 @@ def scipy_triangles(g):
     return int((lower @ lower).multiply(lower).sum())
 
 
-def tc_phase(seed, dev, on_card, scale):
+def tc_phase(seed, dev, on_card, scale, trace):
     import torch
     from repro_torch.graph import rmat
     from repro_torch.kernels.tc_matmul.kernel import tc_matmul
@@ -653,18 +704,24 @@ def tc_phase(seed, dev, on_card, scale):
         return None
     dense_flops = 2 * n ** 3
     need_flops = 2 * (n * (n - 1) * (n - 2) // 6)     # triples i > k > j
-    t_ops = need_flops / BF16_OPS_PER_S
-    t_bytes = n * n * 4 / HBM_BYTES_PER_S
+    t_ops = need_flops / INT8_OPS_PER_S                # the kernel's int8 products
+    t_bytes = n * n * 4 / HBM_BYTES_PER_S              # f32 L read once
     bound, bound_by = 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    bf16_bound = 1e3 * max(need_flops / BF16_OPS_PER_S, t_bytes)
     lb = lower.bfloat16()
     ms = cuda_ms(lambda: tc_matmul(lower), n=5)
     plain_ms = cuda_ms(lambda: tc_matmul_ref(lower), n=5)
     lib_ms = cuda_ms(lambda: ((lb @ lb) * lb).sum(), n=5)
     print(f"  tc_matmul f32 N={n}: {ms:.4f} ms, bound {bound:.4f} ms ({bound_by}: "
-          f"{need_flops:.3e} FLOPs of the strict-lower triples at {BF16_OPS_PER_S:.3e}/s; "
-          f"the dense form's {dense_flops:.3e} FLOPs would take "
-          f"{1e3 * dense_flops / BF16_OPS_PER_S:.4f} ms), plain {plain_ms:.4f} ms, "
+          f"{need_flops:.3e} operations of the strict-lower triples at int8's "
+          f"{INT8_OPS_PER_S:.3e}/s; at bf16's {BF16_OPS_PER_S:.3e}/s {bf16_bound:.4f} ms; "
+          f"one read of f32 L {1e3 * t_bytes:.4f} ms; the dense form's {dense_flops:.3e} at "
+          f"bf16 {1e3 * dense_flops / BF16_OPS_PER_S:.4f} ms), plain {plain_ms:.4f} ms, "
           f"bf16 matmul-and-mask {lib_ms:.4f} ms")
+    if trace:
+        # three calls: the profiler can miss the first kernel of its window
+        tr = trace_run(lambda: [tc_matmul(lower) for _ in range(3)])
+        print("  " + json.dumps(dict(call="tc_matmul x3", untraced_ms=3 * ms, **tr)))
     return dict(name="tc_matmul.f32", route="cuda", source=TC_SOURCE, replaces=TC_REPLACES,
                 launches=launches, max_abs_err=float(abs(int(got) - want)), ms=ms,
                 plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
@@ -705,8 +762,11 @@ def main(argv=None):
 
         # 2. build
         t0 = time.perf_counter()
-        for name, log in _build.build_all().items():
+        logs = _build.build_all()
+        for name, log in logs.items():
             print(f"  nvcc {name}: " + "\n  ".join(log.strip().splitlines()))
+        for row in ptxas_summary(logs):
+            print("  ptxas " + json.dumps(row))
         phase("build", t0, f"flags {' '.join(_build.FLAGS)}")
 
     # 3. graph
@@ -778,7 +838,7 @@ def main(argv=None):
 
     # 10. tc
     t0 = time.perf_counter()
-    tc = tc_phase(args.seed, dev, on_card, 14 if on_card else 8)
+    tc = tc_phase(args.seed, dev, on_card, 14 if on_card else 8, on_card and args.trace)
     phase("tc", t0, "count_triangles_dense == scipy == tc_matmul_ref")
 
     if not on_card:

@@ -10,8 +10,13 @@ Each kernel package has:
   ell_spmv        — SSSP relax / PR gather as block-ELL semiring SpMV/SpMM
                     (replaces repro/kernels/ell_spmv/kernel.py::ell_spmv)
   flash_attention — online-softmax attention for the LM prefill, bf16 on
-                    mma.sync and f32 on FMA (replaces
+                    wgmma fed by TMA (warp-specialised) and f32 on FMA
+                    (replaces
                     repro/kernels/flash_attention/kernel.py::flash_attention)
-  tc_matmul       — triangle count as a masked blocked L·L (replaces
+  tc_matmul       — triangle count as a masked blocked L·L on int8 wgmma
+                    over the lower-triangle tiles (replaces
                     repro/kernels/tc_matmul/kernel.py::tc_matmul)
+
+`common/hopper.cuh` holds what the two tensor-core kernels share: tensor
+maps, mbarriers, TMA loads, wgmma descriptors and forms, setmaxnreg.
 """

@@ -2,15 +2,18 @@
 
 Three sources, one library each: `ell_spmv/csrc/ell_spmv.cu` (the graph
 path's semiring SpMV/SpMM), `flash_attention/csrc/flash_attention.cu` (the
-LM prefill's attention, bf16 on mma.sync and an f32 FMA form, D in
-{32, 64, 128}) and `tc_matmul/csrc/tc_matmul.cu` (the dense triangle
-count). Each is compiled by `nvcc` into a shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds), for `sm_90a`,
-on first use — never at import. The library lands
-in `build/kernels/` at the root of the checkout (listed in `.gitignore`),
-named by a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one is reused. `build_all()` starts one `nvcc` per source,
-all at once, and returns each compiler's `-Xptxas -v` report.
+LM prefill's attention: bf16 on wgmma fed by TMA, warp-specialised, and an
+f32 FMA form; D in {32, 64, 128}) and `tc_matmul/csrc/tc_matmul.cu` (the
+dense triangle count on int8 wgmma). The two tensor-core kernels share the
+header `common/hopper.cuh` (tensor maps, mbarriers, TMA, wgmma,
+setmaxnreg). Each source is compiled by `nvcc` into a shared library with
+a plain C interface (no PyTorch headers, so a build takes seconds), for
+`sm_90a`, on first use — never at import. The library lands in
+`build/kernels/` at the root of the checkout (listed in `.gitignore`),
+named by a hash of the source, the shared headers and the flags, so an
+edited source or header rebuilds and an unchanged one is reused.
+`build_all()` starts one `nvcc` per source, all at once, and returns each
+compiler's `-Xptxas -v` report.
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 SOURCES = {name: _KERNELS / name / "csrc" / f"{name}.cu"
            for name in ("ell_spmv", "flash_attention", "tc_matmul")}
+# headers the sources include; every library's hash covers them
+HEADERS = tuple(sorted((_KERNELS / "common").glob("*.cuh")))
 
 _LOADED: dict = {}   # name -> ctypes.CDLL, loaded once per process
 
@@ -47,8 +52,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
+    digest = hashlib.sha256()
+    for path in (SOURCES[name], *HEADERS):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

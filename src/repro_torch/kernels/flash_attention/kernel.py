@@ -38,6 +38,8 @@ def _library() -> ctypes.CDLL:
             f.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                           + [ctypes.c_float, ctypes.c_void_p])
             f.restype = ctypes.c_int
+        lib.flash_attention_bf16_smem_bytes.argtypes = [ctypes.c_int]
+        lib.flash_attention_bf16_smem_bytes.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -71,7 +73,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Online-softmax attention over [BH, S, D] operands (see the module
     docstring). `bq` and `bk` are the reference's blocks: they set which
     shapes are taken (SQ % min(bq, SQ) == 0, SKV % min(bk, SKV) == 0) and
-    never the result; the CUDA launch tiles by 64 whatever they are."""
+    never the result; the CUDA launch tiles by 128 (bf16) or 16 (f32)
+    query rows whatever they are."""
     _check(q, k, v, bq, bk)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal)
@@ -86,6 +89,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention's kernel takes head_dim in {HEAD_DIMS}, got {d}")
     if max(q.numel(), k.numel()) > _INT_MAX or bh > 65535:
         raise ValueError("flash_attention: an operand exceeds 2^31 - 1 elements or BH > 65535")
+    # the tensor maps' bases must be 16-byte aligned (a view may start anywhere)
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     o = torch.empty_like(q)
     lib = _library()
     with torch.cuda.device(q.device):

@@ -1,143 +1,301 @@
-// Triangle count as a masked blocked matrix product for Hopper (sm_90a),
-// plain C interface.
+// Triangle count as a masked blocked matrix product for Hopper (sm_90a):
+// int8 wgmma over only the lower-triangle work, plain C interface.
 //
 // Replaces the TPU kernel repro/kernels/tc_matmul/kernel.py::tc_matmul
 // (its pl.pallas_call, body _tc_body). It computes what that kernel
 // computes, for L the strict lower triangle of a 0/1 adjacency [N, N]
 // (f32, row-major):
 //
-//   partial[I, J] = sum over the tile (I, J) of (L @ L) * L,   count = sum partial
-//
-// The TPU kernel walks the grid (I, J, K) in order and carries the C tile
-// of (I, J) in VMEM scratch across its K axis. Blocks here run in parallel
-// and in no order, so one block owns one 128 x 128 output tile (I, J) and
-// loops over K itself; its C tile stays in registers (8 x 8 per thread) and
-// only the masked, reduced partial leaves the block. The sum of the
-// partials is a torch reduction outside, as it is a jnp.sum outside the
-// Pallas call.
+//   count = sum( (L @ L) * L )
 //
 // The kernel reads only the strict lower triangle of its input: an entry
 // (r, c) with r <= c counts as 0. On a strictly lower input, which is the
-// contract, that is the same function; it lets the kernel skip the tiles
-// the structure makes zero. L[i, k] needs tile I >= K, L[k, j] needs
-// K >= J and the mask L[i, j] needs I >= J, so block (I, J) runs K = J .. I
-// and a block with J > I writes 0: of the nb^3 tile products of the dense
-// form, nb (nb + 1) (nb + 2) / 6 remain.
+// contract, that is the same function. A strictly lower entry that is
+// neither 0.0 nor 1.0 stops the pack pass with a device-side assert: the
+// int8 copy would otherwise count it as something else without a sound.
 //
-// Exactness: every product is 0 or 1 and every C entry is at most N, so C
-// is exact in f32 below N = 2^24; each thread adds its masked C entries in
-// f64 and the block reduces in f64, so a partial is exact where the TPU
-// kernel's f32 partial rounds above 2^24. The partials are f64.
+// Two launches:
 //
-// Bound: operations. The dense form is 2 N^3 FLOPs (8.80e12 at N = 16,384,
-// 8.9 ms at the H100 SXM's 989 TFLOP/s for bf16, exact for 0/1 operands and
-// sums up to N), against N^2 * 4 bytes read once (1.07 GB, 0.32 ms at
-// 3.35 TB/s); the tiles the strict lower structure leaves are a sixth of
-// that. What this design does about it: little yet. The products run on
-// plain f32 FMA (SIMT) at most at 67 TFLOP/s: per K step a block stages an
-// A_ik column panel (transposed) and an A_kj row panel, 128 x 8 each, in
-// shared memory, and each thread runs an 8 x 8 outer product per k.
-// Not yet: tensor cores (tf32 or bf16 are exact on 0/1), double-buffered
-// panels, cp.async or TMA.
+//   1. pack: f32 L -> two int8 copies in the caller's scratch, L8
+//      (row-major) and L8T (its transpose), each [Np, Np] with Np = N
+//      rounded up to 128 and zeros past N. int8 wgmma takes only K-major
+//      operands; the B operand L[K tile, J tile] is N-major in row-major L,
+//      so it comes from L8T. The padding keeps TMA's row strides multiples
+//      of 16 bytes. One block per 128 x 128 tile on or below the diagonal:
+//      the products never read the tiles above it, of L8, or those below it,
+//      of L8T, so those stay unwritten.
+//   2. products: the TPU kernel walks its grid (I, J, K) in order and
+//      carries the C tile of (I, J) in VMEM across K; blocks here run in
+//      parallel and in no order. Output tile (I, J), J <= I, needs K tiles
+//      J .. I (L[i, k] needs K <= I, L[k, j] needs K >= J). The epilogue
+//      sum(acc * L_IJ) is linear in acc, so the K range splits into work
+//      units (I, J, K0, nK) with no reduction between blocks: each unit
+//      writes its own masked partials, one int64 per consumer warp. The
+//      caller builds the unit list (longest first, neighbours in K together
+//      so the tiles in flight share the L2 cache) and sums the partials. A
+//      persistent grid, one block per SM, walks the list with a stride of
+//      the grid.
 //
-// Ragged edges are masked (N need not be a multiple of 128). Each exported
-// function returns cudaGetLastError() after its launch (0 on success).
+// A block is three warpgroups. Warpgroup 0 is the producer: one thread
+// starts the TMA loads of the A tile L8[I, K] and the B tile L8T[J, K] (128 x
+// 128 bytes each, 128-byte swizzle) into a ring of kStages stages, each
+// guarded by a "full" mbarrier (TMA transaction bytes) and an "empty" one
+// (one arrival per consumer warp). Warpgroups 1 and 2 are the consumers,
+// rows 0-63 and 64-127 of the output tile: per stage four
+// wgmma.m64n128k32.s32.s8.s8 from shared memory into int32 accumulators
+// (64 per thread), then the stage goes back to the producer. Exact for any
+// N: a C entry is at most N.
+//
+// Bound: operations. The strict-lower triples i > k > j number
+// N(N-1)(N-2)/6, two operations each (a multiply and an add): 1.466e12 at
+// N = 16,384, 0.741 ms at the H100 SXM's 1,979 TOP/s for int8 (1.482 ms at
+// bf16's 989 TFLOP/s); one read of f32 L is 1.07 GB, 0.32 ms at 3.35 TB/s.
+// What the design does about it: the products run on int8 tensor cores fed
+// by TMA through a 4-stage ring, over a sixth of the dense tile products.
+// What it leaves: 128 x 128 output tiles read 32 KB per tile product from
+// L2; each stage waits for its products to finish (wgmma.wait_group 0)
+// before it is released, and releasing it one step later, or a deeper
+// ring, measured no faster.
+//
+// Each exported function returns cudaGetLastError() after its launches (0
+// on success).
 
-#include <cuda_runtime.h>
+#include <cassert>
+#include <cstdint>
+
+#include "../../common/hopper.cuh"
 
 namespace {
 
-constexpr int kT = 128;                      // output tile edge
-constexpr int kTK = 8;                       // K depth of one staged panel
-constexpr int kThreads = 256;                // 16 x 16 threads, 8 x 8 outputs each
-constexpr int kMicro = 8;
+constexpr int kT = 128;                      // tile edge (rows, columns, K)
+constexpr int kStages = 4;                   // TMA ring depth
+constexpr int kTileBytes = kT * kT;          // one int8 tile
+constexpr int kStageBytes = 2 * kTileBytes;  // A + B
+constexpr int kConsumerWarps = 8;
+constexpr int kThreads = 384;                // producer + 2 consumer warpgroups
+constexpr int kSmemBytes = 1024 + kStages * kStageBytes + 2 * kStages * 8;
 
-// L[r, c] of the strict lower triangle, 0 outside [0, N)
-__device__ __forceinline__ float lower_at(const float* A, int N, int r, int c) {
-  return (r < N && c < N && r > c) ? A[static_cast<long long>(r) * N + c] : 0.f;
+// ---------------------------------------------------------------------------
+// 1. pack
+// ---------------------------------------------------------------------------
+
+constexpr int kPackThreads = 256;
+constexpr int kPackStride = kT + 4;          // shared row, bytes
+
+__global__ void __launch_bounds__(kPackThreads)
+pack_lower(const float* __restrict__ L, int8_t* __restrict__ L8, int8_t* __restrict__ L8T,
+           int N, int Np) {
+  __shared__ __align__(16) int8_t t[kT * kPackStride];
+  // blockIdx.x enumerates the tiles (I, J), J <= I, row by row
+  const int tile = blockIdx.x;
+  int I = static_cast<int>((sqrtf(8.f * tile + 1.f) - 1.f) * 0.5f);
+  while ((I + 1) * (I + 2) / 2 <= tile) ++I;
+  while (I * (I + 1) / 2 > tile) --I;
+  const int J = tile - I * (I + 1) / 2;
+  const int r0 = I * kT, c0 = J * kT;
+
+  bool bad = false;
+  const bool vec = (N % 4) == 0;             // float4 loads stay aligned
+  for (int e = threadIdx.x; e < kT * (kT / 4); e += kPackThreads) {
+    const int r = e / (kT / 4), c = (e % (kT / 4)) * 4;
+    const int gr = r0 + r, gc = c0 + c;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (gr < N) {
+      const float* src = L + static_cast<long long>(gr) * N + gc;
+      if (vec && gc + 3 < N) {
+        const float4 x = *reinterpret_cast<const float4*>(src);
+        v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[q] = gc + q < N ? src[q] : 0.f;
+      }
+    }
+    uint32_t packed = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const bool keep = gr > gc + q;         // strict lower; zero past N was loaded
+      const float x = keep ? v[q] : 0.f;
+      bad |= (x != 0.f && x != 1.f);
+      packed |= static_cast<uint32_t>(x == 1.f) << (8 * q);
+    }
+    *reinterpret_cast<uint32_t*>(t + r * kPackStride + c) = packed;
+    *reinterpret_cast<uint32_t*>(L8 + static_cast<long long>(gr) * Np + gc) = packed;
+  }
+  __syncthreads();
+  // L8T[c0 + c, r0 + r] = t[r, c]: thread = (column c, 32 rows), 32 bytes out
+  for (int e = threadIdx.x; e < kT * (kT / 32); e += kPackThreads) {
+    const int c = e % kT, rb = (e / kT) * 32;
+    uint32_t w[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      uint32_t x = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        x |= static_cast<uint32_t>(static_cast<uint8_t>(t[(rb + 4 * q + b) * kPackStride + c]))
+             << (8 * b);
+      }
+      w[q] = x;
+    }
+    uint4* dst = reinterpret_cast<uint4*>(L8T + static_cast<long long>(c0 + c) * Np + r0 + rb);
+    dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+    dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+  }
+  assert(!bad);                              // a strictly lower entry not in {0, 1}
 }
 
-__global__ void __launch_bounds__(kThreads)
-tc_tile(const float* __restrict__ A, double* __restrict__ partials, int N, int nb) {
-  __shared__ float As[kTK][kT + 4];          // A_ik transposed: As[k][i]; +4 spreads the stores
-  __shared__ float Bs[kTK][kT];              // A_kj: Bs[k][j]
-  __shared__ double red[kThreads / 32];
+// ---------------------------------------------------------------------------
+// 2. products
+// ---------------------------------------------------------------------------
 
-  const int J = blockIdx.x, I = blockIdx.y;
-  const int tid = threadIdx.x;
-  if (J > I) {                               // the mask tile is zero
-    if (tid == 0) partials[static_cast<long long>(I) * nb + J] = 0.0;
+__global__ void __launch_bounds__(kThreads, 1)
+tc_wgmma(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+         const int4* __restrict__ units, int n_units, const int8_t* __restrict__ L8, int Np,
+         long long* __restrict__ partials) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  auto tile_a = [&](int s) { return smem + s * kStageBytes; };
+  auto tile_b = [&](int s) { return smem + s * kStageBytes + kTileBytes; };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumerWarps);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread keeps the ring full
+    if (threadIdx.x == 0) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+        const int4 w = units[u];             // (I, J, K0, nK)
+        for (int kt = 0; kt < w.w; ++kt) {
+          hopper::mbar_wait(&empty[s], phase ^ 1);
+          hopper::mbar_arrive_expect_tx(&full[s], kStageBytes);
+          const int k = (w.z + kt) * kT;
+          hopper::tma_load_2d(tile_a(s), &map_a, &full[s], k, w.x * kT);
+          hopper::tma_load_2d(tile_b(s), &map_b, &full[s], k, w.y * kT);
+          if (++s == kStages) { s = 0; phase ^= 1; }
+        }
+      }
+    }
     return;
   }
-  const int tx = tid % 16, ty = tid / 16;    // thread owns rows ty + 16 r, cols tx + 16 c
-  const int i0 = I * kT, j0 = J * kT;
 
-  float c[kMicro][kMicro];
+  // consumers: warpgroup cw owns rows 64 cw .. 64 cw + 63 of the output tile
+  const int cw = wg - 1;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  int s = 0;
+  uint32_t phase = 0;
+  for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+    const int4 w = units[u];
+    // this thread's mask entries L8[row, col .. col + 1], fetched before the
+    // products so their latency hides behind them
+    const int row = w.x * kT + cw * 64 + warp * 16 + g;
+    const int8_t* m_lo = L8 + static_cast<long long>(row) * Np + w.y * kT + 2 * tq;
+    const int8_t* m_hi = m_lo + 8LL * Np;
+    uint16_t mask[2][kT / 8];
 #pragma unroll
-  for (int r = 0; r < kMicro; ++r)
-#pragma unroll
-    for (int q = 0; q < kMicro; ++q) c[r][q] = 0.f;
-
-  // K runs over columns J*128 .. (I+1)*128 - 1, one 8-deep panel at a time
-  const int k_end = min((I + 1) * kT, N);
-  for (int k0 = j0; k0 < k_end; k0 += kTK) {
-#pragma unroll
-    for (int m = 0; m < kT * kTK / kThreads; ++m) {
-      const int e = tid + m * kThreads;
-      const int ai = e / kTK, ak = e % kTK;  // A panel: 8 consecutive k per row
-      As[ak][ai] = lower_at(A, N, i0 + ai, k0 + ak);
-      const int bk = e / kT, bj = e % kT;    // B panel: 128 consecutive j per row
-      Bs[bk][bj] = lower_at(A, N, k0 + bk, j0 + bj);
+    for (int j = 0; j < kT / 8; ++j) {
+      mask[0][j] = *reinterpret_cast<const uint16_t*>(m_lo + 8 * j);
+      mask[1][j] = *reinterpret_cast<const uint16_t*>(m_hi + 8 * j);
     }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kTK; ++k) {
-      float a[kMicro], b[kMicro];
-#pragma unroll
-      for (int r = 0; r < kMicro; ++r) a[r] = As[k][ty + 16 * r];
-#pragma unroll
-      for (int q = 0; q < kMicro; ++q) b[q] = Bs[k][tx + 16 * q];
-#pragma unroll
-      for (int r = 0; r < kMicro; ++r)
-#pragma unroll
-        for (int q = 0; q < kMicro; ++q) c[r][q] = fmaf(a[r], b[q], c[r][q]);
-    }
-    __syncthreads();
-  }
 
-  // mask by L_ij and reduce: f64 per thread, per warp, per block
-  double sum = 0.0;
+    int32_t acc[64];
 #pragma unroll
-  for (int r = 0; r < kMicro; ++r)
+    for (int i = 0; i < 64; ++i) acc[i] = 0;
+    for (int kt = 0; kt < w.w; ++kt) {
+      hopper::mbar_wait(&full[s], phase);
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int q = 0; q < kMicro; ++q)
-      sum += static_cast<double>(c[r][q]) *
-             static_cast<double>(lower_at(A, N, i0 + ty + 16 * r, j0 + tx + 16 * q));
+      for (int kk = 0; kk < kT / 32; ++kk) {
+        const uint64_t da = hopper::make_desc(tile_a(s) + cw * 64 * kT + kk * 32, 16, 1024,
+                                              hopper::kSwizzle128B);
+        const uint64_t db =
+            hopper::make_desc(tile_b(s) + kk * 32, 16, 1024, hopper::kSwizzle128B);
+        hopper::wgmma_m64n128k32_s8(acc, da, db);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+      if (++s == kStages) { s = 0; phase ^= 1; }
+    }
+
+    // masked sum of this thread's 64 entries, then of the warp's
+    int32_t sum = 0;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (tid % 32 == 0) red[tid / 32] = sum;
-  __syncthreads();
-  if (tid == 0) {
-    double total = 0.0;
+    for (int j = 0; j < kT / 8; ++j) {
+      sum += acc[4 * j + 0] * (mask[0][j] & 0xff) + acc[4 * j + 1] * (mask[0][j] >> 8) +
+             acc[4 * j + 2] * (mask[1][j] & 0xff) + acc[4 * j + 3] * (mask[1][j] >> 8);
+    }
+    long long total = sum;
 #pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) total += red[w];
-    partials[static_cast<long long>(I) * nb + J] = total;
+    for (int off = 16; off > 0; off >>= 1) total += __shfl_xor_sync(0xffffffffu, total, off);
+    if (lane == 0) partials[static_cast<long long>(u) * kConsumerWarps + cw * 4 + warp] = total;
   }
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    return 0;
+  }
+  return n;
 }
 
 }  // namespace
 
-// partials must hold nb * nb doubles, nb = ceil(N / 128)
-extern "C" int tc_matmul_f32(const void* lower, void* partials, int N, void* stream) {
-  if (N <= 0) return cudaErrorInvalidValue;
-  const int nb = (N + kT - 1) / kT;
-  if (nb > 65535) return cudaErrorInvalidValue;
-  tc_tile<<<dim3(nb, nb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(lower), static_cast<double*>(partials), N, nb);
+// lower: [N, N] f32; l8, l8t: [Np, Np] int8 scratch, Np = ceil(N / 128) * 128;
+// units: [n_units] int4 (I, J, K0, nK) in 128-tiles; partials: n_units * 8
+// int64, written whole.
+extern "C" int tc_matmul_f32(const void* lower, void* l8, void* l8t, const void* units,
+                             int n_units, void* partials, int N, void* stream) {
+  if (N <= 0 || n_units <= 0) return cudaErrorInvalidValue;
+  const int nb = (N + kT - 1) / kT, Np = nb * kT;
+  auto s = static_cast<cudaStream_t>(stream);
+  pack_lower<<<nb * (nb + 1) / 2, kPackThreads, 0, s>>>(
+      static_cast<const float*>(lower), static_cast<int8_t*>(l8), static_cast<int8_t*>(l8t), N,
+      Np);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  CUtensorMap map_a, map_b;
+  const uint64_t dims[2] = {static_cast<uint64_t>(Np), static_cast<uint64_t>(Np)};
+  const uint64_t strides[1] = {static_cast<uint64_t>(Np)};
+  const uint32_t box[2] = {kT, kT};
+  if ((err = hopper::make_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, l8, dims, strides, box,
+                              CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess ||
+      (err = hopper::make_map(&map_b, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, l8t, dims, strides, box,
+                              CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess) {
+    return err;
+  }
+  err = cudaFuncSetAttribute(tc_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const int sms = sm_count();
+  if (sms <= 0) return cudaErrorInvalidDevice;
+  const int grid = n_units < sms ? n_units : sms;
+  tc_wgmma<<<grid, kThreads, kSmemBytes, s>>>(map_a, map_b, static_cast<const int4*>(units),
+                                               n_units, static_cast<const int8_t*>(l8), Np,
+                                               static_cast<long long*>(partials));
   return cudaGetLastError();
 }
 
 extern "C" int tc_matmul_tile() { return kT; }
+
+extern "C" int tc_matmul_warps() { return kConsumerWarps; }
+
+// dynamic shared memory of the products kernel (ptxas reports only static)
+extern "C" int tc_matmul_smem_bytes() { return kSmemBytes; }
 
 extern "C" const char* tc_matmul_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -130,14 +130,17 @@ def qkv(bh, sq, skv, d, dtype, device, seed=0):
 @pytest.mark.parametrize("bh,sq,skv,d", [
     (2, 128, 128, 64), (1, 256, 256, 32), (3, 128, 256, 64), (2, 64, 512, 128),
     (4, 32, 32, 128), (2, 32, 96, 64), (1, 100, 100, 32), (2, 8, 640, 128),
-    (2, 4, 4, 64), (3, 1, 256, 128)])
+    (2, 4, 4, 64), (3, 1, 256, 128), (3, 100, 100, 64), (2, 130, 200, 128),
+    (2, 1, 640, 32)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain_version(cuda, bh, sq, skv, d, causal, dtype):
-    """f32 at atol 2e-5, bf16 at 3e-2: the reference's own tolerances."""
+    """f32 at atol 2e-5, bf16 at 3e-2: the reference's own tolerances.
+    SQ and SKV need not be multiples of the kernel's 128-row tiles (bq =
+    SQ and bk = SKV keep the reference's block contract for any shape)."""
     q, k, v = qkv(bh, sq, skv, d, dtype, cuda)
     before = flash_attention.launches
-    got = flash_attention(q, k, v, causal=causal)
+    got = flash_attention(q, k, v, causal=causal, bq=sq, bk=skv)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
@@ -203,9 +206,11 @@ def test_flash_attention_raises_on_what_it_does_not_take(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,block,p", [(64, 32, 0.1), (128, 128, 0.1), (384, 128, 0.05),
-                                       (200, 100, 0.2), (1024, 128, 0.02)])
+                                       (200, 100, 0.2), (1000, 200, 0.05),
+                                       (1024, 128, 0.02)])
 def test_tc_matmul_matches_plain_version(cuda, n, block, p):
-    """0/1 operands: every count is an integer below 2^24, so exact."""
+    """0/1 operands: every count is an integer below 2^24, so exact. N off
+    the kernel's 128 tiles (200, 1000) packs with zero padding."""
     rng = np.random.default_rng(n)
     lower = torch.from_numpy(np.tril((rng.random((n, n)) < p).astype(np.float32), -1)).to(cuda)
     before = tc_matmul.launches
@@ -214,6 +219,27 @@ def test_tc_matmul_matches_plain_version(cuda, n, block, p):
     assert tc_matmul.launches == before + 1
     assert got.dtype == torch.float32 and got.ndim == 0
     assert float(got) == float(tc_matmul_ref(lower)) > 0
+
+
+@pytest.mark.gpu
+def test_tc_matmul_asserts_on_a_strictly_lower_entry_not_0_or_1(cuda):
+    """0.5 below the diagonal would pack to a wrong int8 count: the pack
+    pass stops with a device-side assert instead. In a child process, as
+    the assert leaves the CUDA context unusable."""
+    code = (
+        "import torch\n"
+        "from repro_torch.kernels.tc_matmul.kernel import tc_matmul\n"
+        "lower = torch.zeros((256, 256), device='cuda')\n"
+        "lower[200, 3] = 0.5\n"
+        "print(float(tc_matmul(lower)))\n"
+        "torch.cuda.synchronize()\n")
+    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, env=env)
+    assert proc.returncode != 0
+    assert "device-side assert" in proc.stdout + proc.stderr, proc.stderr[-2000:]
 
 
 @pytest.mark.gpu

@@ -14,9 +14,9 @@ import torch
 import repro_torch.graph as tg
 from repro.kernels.tc_matmul.kernel import tc_matmul as ref_tc_matmul
 from repro.kernels.tc_matmul.ops import prepare_lower as ref_prepare_lower
-from repro_torch.kernels.tc_matmul.kernel import tc_matmul
+from repro_torch.kernels.tc_matmul.kernel import K_CHUNK, TILE, tc_matmul, work_units
 from repro_torch.kernels.tc_matmul.ops import count_triangles_dense, prepare_lower
-from repro_torch.kernels.tc_matmul.ref import tc_matmul_ref
+from repro_torch.kernels.tc_matmul.ref import pack_lower_ref, tc_matmul_ref
 
 
 def carry(g):
@@ -78,3 +78,48 @@ def test_wrapper_checks_its_inputs():
     before = tc_matmul.launches
     tc_matmul(torch.zeros(64, 64), block=64)
     assert tc_matmul.launches == before
+
+
+@pytest.mark.parametrize("n", [128, 200, 1024, 16384])
+def test_work_units_cover_every_lower_triple_once(n):
+    """The kernel's work list: every tile triple (I, J, K) with J <= K <= I
+    exactly once, no unit longer than K_CHUNK, longest first."""
+    units = work_units(n)
+    assert units.dtype == np.int32 and units.shape[1] == 4
+    i, j, k0, nk = units.T.astype(np.int64)
+    assert (nk >= 1).all() and (nk <= K_CHUNK).all()
+    assert (np.diff(nk) <= 0).all()
+    nb = -(-n // TILE)
+    assert (j <= k0).all() and (k0 + nk - 1 <= i).all() and (i < nb).all()
+    # expand the units into their (I, J, K) triples, one code each
+    ks = np.repeat(k0, nk) + (np.arange(int(nk.sum())) - np.repeat(np.cumsum(nk) - nk, nk))
+    got = np.sort(np.repeat(i, nk) * nb * nb + np.repeat(j, nk) * nb + ks)
+    ii, jj, kk = np.meshgrid(*(np.arange(nb),) * 3, indexing="ij")
+    keep = (jj <= kk) & (kk <= ii)
+    want = np.sort((ii * nb * nb + jj * nb + kk)[keep])
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [5, 128, 200])
+def test_pack_lower_ref_matches_numpy(n):
+    """Padded to a multiple of 128, the strict lower triangle only, in both
+    orientations; what lies on or above the diagonal is dropped."""
+    rng = np.random.default_rng(n)
+    a = (rng.random((n, n)) < 0.3).astype(np.float32)      # not lower: the pack drops the rest
+    l8, l8t = pack_lower_ref(torch.from_numpy(a))
+    n_pad = -(-n // TILE) * TILE
+    want = np.zeros((n_pad, n_pad), np.int8)
+    want[:n, :n] = np.tril(a, -1).astype(np.int8)
+    assert l8.dtype == torch.int8 and tuple(l8.shape) == (n_pad, n_pad)
+    assert np.array_equal(l8.numpy(), want)
+    assert np.array_equal(l8t.numpy(), want.T)
+    assert l8t.is_contiguous()
+
+
+def test_pack_lower_ref_refuses_a_strictly_lower_entry_not_0_or_1():
+    a = np.tril(np.ones((8, 8), np.float32), -1)
+    a[0, 5] = 0.5                                          # above the diagonal: dropped
+    pack_lower_ref(torch.from_numpy(a))
+    a[5, 0] = 0.5
+    with pytest.raises(ValueError, match="neither 0 nor 1"):
+        pack_lower_ref(torch.from_numpy(a))
