@@ -18,17 +18,26 @@ Phases, each printed with its own seconds; any failure exits non-zero:
                4,194,304 vertices, 67,108,864 sampled edges before dedup,
                the size of the paper's soc-LiveJournal1) and its reverse
                sliced-ELL view;
-  4. kernels — `ell_spmv` against its plain version `ell_spmv_ref` on every
-               bucket shape of that view, for both semirings, in the SpMV
-               form and the SpMM form (B = 32), plus random shapes: int32
-               results equal, f32 at rtol 1e-5 (sums run in another order).
-               Times with CUDA events (warm-up, then the mean of 20
-               launches) beside the memory bound and, for plus-times,
-               torch.sparse.mm on the same entries;
+  4. kernels — the rectangular `ell_spmv` against its plain version
+               `ell_spmv_ref` on every bucket shape of that view, for both
+               semirings, in the SpMV form and the SpMM form (B = 32), plus
+               random shapes: int32 results equal, f32 at rtol 1e-5 (sums
+               run in another order). Times with CUDA events (warm-up, then
+               the mean of 20 launches) beside the memory bound and, for
+               plus-times, torch.sparse.mm on the same entries. Then the
+               whole-view pull sweep `ell_sweep` against `ell_sweep_ref` on
+               the same view and plan, for both semirings (int32 equal, f32
+               at rtol 1e-5, two calls bitwise equal), timed beside its
+               real-entry bound (HBM bytes, and the L2 sectors its x
+               gathers pull at the L2 read rate measured in this run) and,
+               for plus-times, one torch.sparse.mm over the whole reverse
+               CSR with unit values;
   5. main    — compile_bundled(name, backend="cuda").bind(g)(...) for sssp,
                sssp pinned to pull, sssp_pull and pr; the second call is
-               timed (host clock ending in synchronize()), with the kernel's
-               launch count reset just before it and read just after;
+               timed (host clock ending in synchronize()), with the
+               kernels' launch counts (`ell_sweep`, `ell_spmv`) reset just
+               before it and read just after; every run must launch the
+               sweep;
   6. check   — every result against the port's `local` backend on the same
                card (dist equal, pageRank at rtol 1e-4 and atol 1e-9: ranks
                are about 1/N), dist against scipy's Dijkstra and pageRank
@@ -39,7 +48,8 @@ Phases, each printed with its own seconds; any failure exits non-zero:
                device-busy share of the traced call (kernel time over wall
                time; one stream, so kernels do not overlap) and the traced
                call's wall time beside the untraced one (the tracing cost);
-               phase 9 then traces one prefill and one decode step the same
+               the runs that only pull (sssp pinned to pull, pr) must show
+               no scatter or index_add kernel; phase 9 then traces one prefill and one decode step the same
                way, and phase 10 three tc_matmul calls (pack and products);
   8. lm-kernels — `flash_attention` against `attention_ref` on the same
                seeded inputs: the reference's test shapes and two with
@@ -68,7 +78,8 @@ Phases, each printed with its own seconds; any failure exits non-zero:
                matmul-and-mask.
 
 The line before the last is {"kernels": [...]} (ell_spmv's two semirings,
-flash_attention.bf16 and tc_matmul.f32); the last line is {"ok": true,
+reported by the sweep that the main path runs, flash_attention.bf16 and
+tc_matmul.f32); the last line is {"ok": true,
 "device": {...}}. Without a CUDA device the run fails; a `--device cpu`
 rehearsal runs phases 3, 5, 6 and 8 to 10 with the plain versions at smoke
 sizes (the LM's smoke config, a 256-token prefill, RMAT 8), prints no
@@ -98,6 +109,9 @@ FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:81"
 TC_SOURCE = "src/repro_torch/kernels/tc_matmul/csrc/tc_matmul.cu"
 TC_REPLACES = "src/repro/kernels/tc_matmul/kernel.py:50"
 TIMED_LAUNCHES = 20
+INF = 2**30                   # INF_I32 of the graph layer
+L2_PROBE_BYTES = 16 * 2**20   # a tensor that stays in the 50 MB L2
+SECTOR_BYTES = 32             # what L2 moves for one random 4-byte gather
 # logits of the full-size LM (std about 1): two bf16 paths through 36
 # layers agree within this (PERF.md, "lm" phase)
 LM_LOGIT_ATOL = 0.25
@@ -234,6 +248,110 @@ def kernel_phase(ell, n, seed):
     return rows
 
 
+def l2_read_rate(dev, reps=256):
+    """Bytes per second that one torch.sum reads when it sums `reps`
+    broadcast copies of a 16 MiB float32 tensor (a stride-0 dimension, so
+    every copy after the first is read from L2): the L2 read rate measured
+    in this run. The fastest of the torch reductions tried on the H100
+    (PERF.md); a floor on the L2's peak, not the peak itself."""
+    import torch
+    t = torch.ones(L2_PROBE_BYTES // 4, device=dev).view(1, -1).expand(reps, -1)
+    return reps * L2_PROBE_BYTES / (cuda_ms(lambda: t.sum(dim=0), n=20) / 1e3)
+
+
+def sweep_bound(ell, semiring, l2_rate):
+    """Least time for one sweep from its real entries: each real edge's
+    column (and weight, min-plus) read once, the bucket row ids once, x
+    (and dist) read once and y written once, over the HBM rate; beside it
+    the L2 figure, one 32-byte sector per x gather over the measured L2
+    rate (a floor on the L2's peak, so this figure is a ceiling on the
+    time L2 alone needs); and the operations (an add and a min, or an
+    add, per edge)."""
+    n = ell.num_nodes
+    edges = sum(int((c < n).sum()) for c in ell.cols) + int(ell.hub_rows.shape[0])
+    rows = sum(int((r < n).sum()) for r in ell.rows)
+    minplus = semiring == "minplus"
+    hbm_bytes = edges * (8 if minplus else 4) + rows * 4 + (3 if minplus else 2) * n * 4
+    t_bytes = hbm_bytes / HBM_BYTES_PER_S
+    t_ops = edges * (2 if minplus else 1) / F32_OPS_PER_S
+    l2_bytes = edges * SECTOR_BYTES
+    t_l2 = l2_bytes / l2_rate
+    return dict(real_edges=edges, bucket_rows=rows, hbm_bytes=hbm_bytes,
+                bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                l2_sector_bytes=l2_bytes, l2_bytes_per_s=l2_rate, bound_l2_ms=1e3 * t_l2,
+                binds="l2" if t_l2 > max(t_bytes, t_ops) else "hbm")
+
+
+def whole_graph_spmv(g):
+    """torch.sparse.mm over the whole reverse CSR with unit values: the
+    plus-times sweep's function, for the yardstick only."""
+    import warnings
+
+    import torch
+    n = g.num_nodes
+    with warnings.catch_warnings():   # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        a = torch.sparse_csr_tensor(g.rev_indptr.long(), g.rev_indices.long(),
+                                    torch.ones(g.num_edges, device=g.device), size=(n, n))
+    return lambda x: torch.sparse.mm(a, x[:, None])[:, 0]
+
+
+def sweep_phase(g, ell, seed):
+    """The one-launch pull sweep over the whole view against its plain
+    version on the same plan, for both semirings, timed beside its bound
+    and (plus-times) torch.sparse.mm."""
+    import torch
+    from repro_torch.core import get_context
+    from repro_torch.kernels.ell_spmv.kernel import ell_sweep
+    from repro_torch.kernels.ell_spmv.ref import ell_sweep_ref
+    plan = get_context(g).sweep_plan(None)     # the plan the main path uses
+    n, dev = g.num_nodes, g.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    dist = torch.randint(0, 1 << 20, (n,), generator=gen, device=dev, dtype=torch.int32)
+    dist[torch.rand(n, generator=gen, device=dev) < 0.3] = INF
+    x = torch.where(torch.rand(n, generator=gen, device=dev) < 0.5, dist, INF)
+    contrib = torch.rand(n, generator=gen, device=dev)
+    l2_rate = l2_read_rate(dev)
+    rows = {}
+    for semiring, xs, d in (("minplus", x, dist), ("plustimes", contrib, None)):
+        def kernel(xs=xs, d=d, semiring=semiring):
+            return ell_sweep(ell, plan, xs, semiring=semiring, dist=d)
+
+        def plain(xs=xs, d=d, semiring=semiring):
+            return ell_sweep_ref(ell, plan, xs, semiring, d)
+
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        if not torch.equal(got, again):
+            fail(f"ell_sweep {semiring}: two calls differ")
+        if semiring == "minplus":
+            if not torch.equal(got, want):
+                fail("ell_sweep minplus != ell_sweep_ref")
+            err = 0.0
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+            err = float((got - want).abs().max())
+        row = dict(name=f"sweep {semiring}", N=n, hub_entries=int(ell.hub_rows.shape[0]),
+                   chunks=plan.num_chunks, spanning_rows=int(plan.span_rows.shape[0]),
+                   zero_rows=int(plan.zero_rows.shape[0]), blocks=plan.num_blocks,
+                   max_abs_err=err, ms=cuda_ms(kernel),
+                   plain_ms=cuda_ms(plain, n=5, warm=1), library_ms=None,
+                   **sweep_bound(ell, semiring, l2_rate))
+        # the x gathers' sector traffic over the kernel's time
+        row["sector_bytes_per_s"] = row["l2_sector_bytes"] / (row["ms"] / 1e3)
+        if semiring == "plustimes":
+            lib = whole_graph_spmv(g)
+            lib_err = float((lib(xs) - got).abs().max())
+            if not lib_err <= 1e-5 * float(got.abs().max()) + 1e-6:
+                fail(f"torch.sparse.mm disagrees with the sweep ({lib_err})")
+            row["library_ms"] = cuda_ms(lambda: lib(xs))
+        rows[semiring] = row
+    return rows
+
+
 def kernel_name(mangled):
     """`tc_wgmma`, `flash_fwd_bf16<128>`: the last name of an Itanium-mangled
     function and its one integer template argument, if any."""
@@ -286,11 +404,12 @@ RUNS = (("sssp", "auto", dict(src=0)),
 
 def drive(g, backend, name, direction, params, on_card):
     """Compile, bind, call once to warm, then the timed call with the
-    launch and step counters set to 0 just before it and read just after."""
+    launch and step counters set to 0 just before it and read just after
+    (`launches`: the rectangular `ell_spmv`; `sweep_launches`: `ell_sweep`)."""
     import torch
     from repro_torch.core import Schedule, compile_bundled
     from repro_torch.kernels.ell_spmv import ops
-    from repro_torch.kernels.ell_spmv.kernel import ell_spmv
+    from repro_torch.kernels.ell_spmv.kernel import ell_spmv, ell_sweep
     bound = compile_bundled(name, backend=backend,
                             schedule=Schedule(direction=direction)).bind(g)
     bound(**params)
@@ -298,14 +417,14 @@ def drive(g, backend, name, direction, params, on_card):
     sync()
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    ell_spmv.launches = 0
+    ell_spmv.launches = ell_sweep.launches = 0
     ops.relax_minplus.push_steps = ops.relax_minplus.pull_steps = 0
     t = time.perf_counter()
     out = bound(**params)
     sync()
     secs = time.perf_counter() - t
     info = dict(program=name, backend=backend, direction=direction, seconds=secs,
-                launches=ell_spmv.launches,
+                launches=ell_spmv.launches, sweep_launches=ell_sweep.launches,
                 push_steps=ops.relax_minplus.push_steps,
                 pull_steps=ops.relax_minplus.pull_steps,
                 peak_bytes=torch.cuda.max_memory_allocated() if on_card else None)
@@ -346,7 +465,8 @@ def trace_run(fn, top=12):
         fail("torch.profiler recorded no device time")
     return dict(traced_ms=traced_s * 1e3, device_busy_ms=busy_s * 1e3,
                 idle_share=1 - busy_s / traced_s,
-                top=[dict(kernel=k[:90], ms=d / 1e3, calls=c) for d, k, c in rows[:top]])
+                top=[dict(kernel=k[:90], ms=d / 1e3, calls=c) for d, k, c in rows[:top]],
+                kernels=[k for _, k, _ in rows])
 
 
 def dijkstra_ref(g, src=0):
@@ -786,7 +906,10 @@ def main(argv=None):
         shapes = kernel_phase(ell, g.num_nodes, args.seed)
         for row in shapes:
             print("  " + json.dumps(row))
-        phase("kernels", t0, f"{len(shapes)} shapes: kernel == plain version")
+        sweeps = sweep_phase(g, ell, args.seed)
+        for row in sweeps.values():
+            print("  " + json.dumps(row))
+        phase("kernels", t0, f"{len(shapes)} shapes and the sweep: kernel == plain version")
 
     # 5. main path (cuda backend) and the local backend beside it
     t0 = time.perf_counter()
@@ -794,8 +917,8 @@ def main(argv=None):
     for name, direction, params in RUNS:
         bound, out, info = drive(g, "cuda", name, direction, params, on_card)
         bounds[(name, direction)] = bound
-        if on_card and info["launches"] == 0:
-            fail(f"{name}/{direction}: the main path launched no ell_spmv kernel")
+        if on_card and info["sweep_launches"] == 0:
+            fail(f"{name}/{direction}: the main path launched no ell_sweep kernel")
         results["cuda"][(name, direction)] = out
         infos.append(info)
         print("  " + json.dumps(info))
@@ -816,9 +939,18 @@ def main(argv=None):
         for (name, direction, params), info in zip(RUNS, infos):   # the cuda runs
             bound = bounds[(name, direction)]
             tr = trace_run(lambda: bound(**params))
+            names = tr.pop("kernels")
+            sweep = [k[:90] for k in names if "ell_sweep" in k]
             print("  " + json.dumps(dict(program=name, direction=direction,
-                                         untraced_ms=info["seconds"] * 1e3, **tr)))
-        phase("trace", t0, "torch.profiler, one call per cuda run")
+                                         untraced_ms=info["seconds"] * 1e3, **tr,
+                                         sweep_kernels=sweep)))
+            if on_card and (direction == "pull" or name == "pr"):
+                scatters = [k for k in names if re.search(r"scatter|index_?add|indexFunc", k,
+                                                          re.IGNORECASE)]
+                if scatters or not sweep:
+                    fail(f"{name}/{direction} pulls only, yet traced {scatters[:3]} "
+                         f"and sweep kernels {sweep}")
+        phase("trace", t0, "torch.profiler, one call per cuda run; no scatter in a pull")
     del g, ell, results, bounds
     dev = args.device
 
@@ -845,26 +977,22 @@ def main(argv=None):
         print("rehearsal finished: plain versions on the CPU — not a smoke run")
         sys.exit(3)
 
-    # the kernels of the path: one full pull sweep of the SpMV form over the
-    # reverse view's buckets (the sum of the per-bucket rows), launches from
-    # the main-path runs that use each semiring
+    # the kernels of the path: the whole-view pull sweep of each semiring
+    # (the rectangular per-bucket rows stay printed in phase 4), launches
+    # from the main-path runs that use it
     kernels = []
     for semiring, cname, progs in (("minplus", "minplus_i32", ("sssp", "sssp_pull")),
                                    ("plustimes", "plustimes_f32", ("pr",))):
-        sweep = [r for r in shapes if r["semiring"] == semiring
-                 and r["name"].startswith("bucket") and r["B"] == 1]
+        sw = sweeps[semiring]
         mine = [r for r in shapes if r["semiring"] == semiring]
-        lib = [r["library_ms"] for r in sweep]
         kernels.append(dict(
             name=f"ell_spmv.{cname}", route="cuda", source=SOURCE, replaces=REPLACES,
-            launches=sum(i["launches"] for i in infos
+            launches=sum(i["launches"] + i["sweep_launches"] for i in infos
                          if i["backend"] == "cuda" and i["program"] in progs),
-            max_abs_err=max(r["max_abs_err"] for r in mine),
-            ms=sum(r["ms"] for r in sweep), plain_ms=sum(r["plain_ms"] for r in sweep),
-            bound_ms=sum(r["bound_ms"] for r in sweep),
-            bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in sweep)
-                      else "operations"),
-            library_ms=sum(lib) if None not in lib else None))
+            max_abs_err=max([sw["max_abs_err"]] + [r["max_abs_err"] for r in mine]),
+            ms=sw["ms"], plain_ms=sw["plain_ms"], bound_ms=sw["bound_ms"],
+            bound_by=sw["bound_by"], library_ms=sw["library_ms"],
+            bound_l2_ms=sw["bound_l2_ms"]))
     flash["launches"] = lm["flash_launches"]
     kernels += [flash, tc]
     print(json.dumps({"kernels": kernels}))

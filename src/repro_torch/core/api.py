@@ -96,7 +96,8 @@ class BoundProgram:
     """A `CompiledProgram` bound to one graph (`prog.bind(g)`).
 
     Holds the graph strongly and warms the per-graph structures once at
-    construction (the cuda backend's reverse sliced-ELL view), so every
+    construction (the cuda backend's reverse sliced-ELL view and its sweep
+    plan), so every
     subsequent call is pure execution."""
 
     def __init__(self, program: CompiledProgram, graph):
@@ -104,7 +105,7 @@ class BoundProgram:
         self.graph = graph
         ctx = get_context(graph)
         if program.backend == "cuda":
-            ctx.sliced_ell(program.schedule, reverse=True)
+            ctx.sweep_plan(program.schedule)
 
     def __call__(self, **params):
         return self.program.fn(self.graph, **params)

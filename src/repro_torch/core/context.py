@@ -3,9 +3,9 @@
 The port's counterpart of `repro.core.context`. Every backend wants
 something built from a `CSRGraph` once and reused across calls — the cuda
 backend its degree-bucketed sliced-ELL view (reverse orientation, with the
-COO hub tail), tests and benchmarks the dense padded ELL view. All derived
-state for a graph lives in ONE `GraphContext`, found through a
-weakref-keyed module registry:
+COO hub tail) and that view's sweep plan, tests and benchmarks the dense
+padded ELL view. All derived state for a graph lives in ONE
+`GraphContext`, found through a weakref-keyed module registry:
 
     ctx = get_context(g)                 # registered on first touch
     ell = ctx.sliced_ell(schedule)       # built once per (layout, reverse)
@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..graph.csr import CSRGraph, resolve_schedule, to_ell, to_sliced_ell
+from ..kernels.ell_spmv.plan import sweep_plan
 from ..schedule import Schedule
 
 
@@ -78,6 +79,14 @@ class GraphContext:
         key = ("sliced_ell", bool(reverse), sched.layout_key())
         return self.view(key, lambda g: to_sliced_ell(
             g, reverse=reverse, schedule=sched))
+
+    def sweep_plan(self, schedule: Optional[Schedule] = None):
+        """The launch plan of the reverse sliced view's one-launch pull
+        sweep (`kernels.ell_spmv.plan`): the same object the ops find for
+        that view, held here so `view_nbytes` counts it."""
+        sched = resolve_schedule(schedule)
+        key = ("sweep_plan", True, sched.layout_key())
+        return self.view(key, lambda g: sweep_plan(self.sliced_ell(sched)))
 
     def ell(self, *, reverse: bool = False):
         """Dense padded `[N, max_deg]` ELL view (baseline)."""
@@ -205,7 +214,8 @@ def prepare(g: CSRGraph, schedule: Optional[Schedule] = None, *,
     """Explicit warm-up: build the derived structures `backend` needs so the
     first query against `g` pays no host-side view construction.
 
-    * ``cuda`` — the reverse sliced-ELL view for `schedule`'s layout;
+    * ``cuda`` — the reverse sliced-ELL view for `schedule`'s layout and
+      its sweep plan;
     * ``local`` — nothing derived (the CSR tensors ARE the layout); the
       context is still registered so `bind` is uniform.
 
@@ -218,7 +228,7 @@ def prepare(g: CSRGraph, schedule: Optional[Schedule] = None, *,
     sched = resolve_schedule(schedule)
     ctx = get_context(g)
     if backend == "cuda":
-        ctx.sliced_ell(sched, reverse=True)
+        ctx.sweep_plan(sched)
     elif backend != "local":
         raise ValueError(
             f"unknown backend {backend!r}; expected 'local' or 'cuda'")

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels and load them with ctypes.
 
 Three sources, one library each: `ell_spmv/csrc/ell_spmv.cu` (the graph
-path's semiring SpMV/SpMM), `flash_attention/csrc/flash_attention.cu` (the
+path's one-launch sliced-ELL pull sweep and the rectangular semiring
+SpMV/SpMM), `flash_attention/csrc/flash_attention.cu` (the
 LM prefill's attention: bf16 on wgmma fed by TMA, warp-specialised, and an
 f32 FMA form; D in {32, 64, 128}) and `tc_matmul/csrc/tc_matmul.cu` (the
 dense triangle count on int8 wgmma). The two tensor-core kernels share the

@@ -1,8 +1,7 @@
-"""Graph-level relax/gather ops on the ELL kernel.
+"""Graph-level relax/gather ops on the ELL kernels.
 
-These are what the DSL's `cuda` backend emits calls to. They own the
-padding/layout glue (sentinel slot, degree buckets, hub tail) so the
-kernel itself stays rectangular. Two layouts coexist, as in the reference:
+These are what the DSL's `cuda` backend emits calls to. Two layouts
+coexist, as in the reference:
 
   * dense ELL (`prepare_ell` → cols/wts tensors): the single `[N, max_deg]`
     view — the kernel unit tests and the baseline;
@@ -10,11 +9,15 @@ kernel itself stays rectangular. Two layouts coexist, as in the reference:
     tiles + a COO hub tail — the frontier-aware engine's layout.
     `relax_minplus` / `gather_plustimes` dispatch on the first argument.
 
-Every bucket goes through `ell_spmv`: the CUDA kernel for tensors on the
-card, its plain version for tensors on the CPU. The reference's
-`mode="drop"` scatters into row-padding slots (row id `N`) become
-scatters into a spare `N`-th slot of an `N + 1` buffer that is sliced off;
-those buffers are fresh and are updated in place.
+A single-vector ([N]) sliced pull is one `ell_sweep` over the view's
+`SweepPlan` (`plan.sweep_plan`, built once per view): buckets, hub tail and
+rows of in-degree 0 in one launch that writes each row once — the CUDA
+kernel for tensors on the card, `ell_sweep_ref` for tensors on the CPU.
+The dense ops and the batched ([B, N]) sliced ops go through the
+rectangular `ell_spmv`, bucket by bucket; there the reference's
+`mode="drop"` scatters into row-padding slots (row id `N`) become scatters
+into a spare `N`-th slot of an `N + 1` buffer that is sliced off; those
+buffers are fresh and are updated in place.
 
 `lax.cond` becomes a Python `if` on one device scalar read on the host.
 """
@@ -24,7 +27,8 @@ import numpy as np
 import torch
 
 from ...graph.csr import CSRGraph, INF_I32, SlicedEllGraph, to_ell, to_sliced_ell
-from .kernel import ell_spmv
+from .kernel import ell_spmv, ell_sweep
+from .plan import sweep_plan
 
 INF = int(INF_I32)
 
@@ -71,9 +75,8 @@ def _extend(x: torch.Tensor, rows: int) -> torch.Tensor:
 
 
 def _row_index(rows: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """int64 scatter index for writing `like` ([R] or [R, B]) into rows."""
-    idx = rows.long()
-    return idx[:, None].expand(like.shape) if like.ndim == 2 else idx
+    """int64 scatter index for writing `like` [R, B] into rows."""
+    return rows.long()[:, None].expand(like.shape)
 
 
 # --------------------------------------------------------------------------
@@ -108,26 +111,25 @@ def _bucket_plustimes(cols, x):
 
 
 def _relax_sliced_pull(ell: SlicedEllGraph, dist, frontier=None):
-    """Masked-pull sweep: per-bucket min-plus kernels + COO hub tail.
-    Frontier masking happens on the gather source (x), so the kernel stays
-    unmasked and rectangular. dist may be [N] or [B, N] (batched: the
-    operand becomes the [N+1, B] matrix the SpMM form consumes). This and
+    """Masked-pull sweep. Frontier masking happens on the gather source
+    (x), so the kernel stays unmasked. dist [N] is one `ell_sweep` (x is
+    the only N-sized pass besides it); dist [B, N] runs per-bucket min-plus
+    SpMM kernels over the [N+1, B] operand, then the COO hub tail. This and
     `_relax_push` are the kernel-layer copies of the push/pull relaxation —
     keep in sync with runtime.relax_minplus_hybrid."""
     n = ell.num_nodes
     x = dist if frontier is None else torch.where(frontier, dist, INF)
-    batched = dist.ndim == 2
+    if dist.ndim == 1:
+        return ell_sweep(ell, sweep_plan(ell), x, semiring="minplus", dist=dist)
     x_ext = _extend(x, n + 1)               # sentinel slot n holds 0
     y = torch.full(x_ext.shape, INF, dtype=dist.dtype, device=dist.device)
     for cols, wts, rows in zip(ell.cols, ell.wts, ell.rows):
         out = ell_spmv(cols, wts, x_ext, semiring="minplus")
         y.scatter_reduce_(0, _row_index(rows, out), out, "amin")
     if ell.hub_rows.shape[0]:
-        hub_w = ell.hub_wts[:, None] if batched else ell.hub_wts
-        cand = x_ext[ell.hub_cols] + hub_w
+        cand = x_ext[ell.hub_cols] + ell.hub_wts[:, None]
         y.scatter_reduce_(0, _row_index(ell.hub_rows, cand), cand, "amin")
-    y = y[:n]
-    return torch.minimum(dist, y.T if batched else y)
+    return torch.minimum(dist, y[:n].T)
 
 
 def _relax_push(g: CSRGraph, dist, frontier):
@@ -221,21 +223,23 @@ def gather_plustimes(cols_or_ell, contrib, n_out: int = None, *,
     by out-degree.
 
     Dense form: `gather_plustimes(cols, contrib)` (returns padded rows).
-    Sliced form: `gather_plustimes(ell, contrib)` (returns exactly [N]).
-    Batched sliced form: contrib [B, N] → [B, N] (plus-times SpMM, one
-    bucket pass shared by all B lanes). The hub tail adds with atomics on
-    the card, so f32 sums there are order-nondeterministic. `block_rows`
-    is ignored, as in `relax_minplus`."""
+    Sliced form: `gather_plustimes(ell, contrib)` (returns exactly [N]):
+    one `ell_sweep`, whose f32 sums run in a fixed order on the card, so
+    they are deterministic. Batched sliced form: contrib [B, N] → [B, N]
+    (plus-times SpMM, one bucket pass shared by all B lanes; its hub tail
+    adds with atomics on the card, so those f32 sums are
+    order-nondeterministic). `block_rows` is ignored, as in
+    `relax_minplus`."""
     if not isinstance(cols_or_ell, SlicedEllGraph):
         return _gather_dense(cols_or_ell, contrib)
     ell = cols_or_ell
+    if contrib.ndim == 1:
+        return ell_sweep(ell, sweep_plan(ell), contrib, semiring="plustimes")
     n = ell.num_nodes
-    batched = contrib.ndim == 2
     x_ext = _extend(contrib, n + 1)
     y = torch.zeros(x_ext.shape, dtype=contrib.dtype, device=contrib.device)
     for cols, rows in zip(ell.cols, ell.rows):
         y.index_add_(0, rows, _bucket_plustimes(cols, x_ext))
     if ell.hub_rows.shape[0]:
         y.index_add_(0, ell.hub_rows, x_ext[ell.hub_cols])
-    y = y[:n]
-    return y.T if batched else y
+    return y[:n].T

@@ -1,7 +1,10 @@
-"""The port's `ell_spmv` and its ops against the JAX reference.
+"""The port's `ell_spmv`, its pull sweep and their ops against the JAX
+reference.
 
-On the CPU the wrapper runs its plain version; it is held against the
-reference's Pallas kernel in interpret mode on the same numpy inputs.
+On the CPU the wrappers run their plain versions; `ell_spmv` is held
+against the reference's Pallas kernel in interpret mode on the same numpy
+inputs, and the sweep (`ell_sweep_ref` following its `SweepPlan`) against
+the reference's sliced pull ops, which run that kernel bucket by bucket.
 int32 (min-plus) results must be equal; f32 (plus-times) results agree at
 rtol 1e-5 because the sums run in another order. The card's kernel is
 checked by tests/test_torch_gpu.py (and by chip_smoke.py).
@@ -16,9 +19,11 @@ import repro_torch.graph as tg
 from repro.graph.csr import INF_I32
 from repro.kernels.ell_spmv import ops as rops
 from repro.kernels.ell_spmv.kernel import ell_spmv as ref_ell_spmv
+import repro_torch.core as tcore
 from repro_torch.core import runtime as trt
 from repro_torch.kernels.ell_spmv import ops as tops
-from repro_torch.kernels.ell_spmv.kernel import ell_spmv
+from repro_torch.kernels.ell_spmv import plan as tplan
+from repro_torch.kernels.ell_spmv.kernel import ell_spmv, ell_sweep
 
 F32 = dict(rtol=1e-5, atol=1e-6)
 
@@ -265,6 +270,201 @@ def test_batched_sliced_relax_and_gather(g_skewed, direction):
         np.testing.assert_allclose(
             got[i].numpy(),
             tops.gather_plustimes(t_ell, torch.from_numpy(contrib[i])).numpy(), **F32)
+
+
+# --- the one-launch pull sweep and its plan --------------------------------------
+
+def star_graph():
+    """The star of test_hub_tail_ops_match_reference: one hub row of
+    in-degree 699 plus random edges."""
+    n = 700
+    rng = np.random.default_rng(5)
+    src = np.concatenate([np.arange(1, n), rng.integers(0, n, 300)])
+    dst = np.concatenate([np.zeros(n - 1, np.int64), rng.integers(0, n, 300)])
+    return rg.from_edges(n, src, dst, rng.integers(1, 101, len(src)))
+
+
+def two_hub_graph():
+    """Hub rows 3 (in-degree 600) and 5 (700), side by side in the hub
+    tail at entries 0..599 and 600..1299, plus random edges among the
+    vertices >= 10 (many of which keep in-degree 0)."""
+    n = 1000
+    rng = np.random.default_rng(9)
+    src = np.concatenate([np.arange(10, 610), np.arange(10, 710), rng.integers(10, n, 400)])
+    dst = np.concatenate([np.full(600, 3), np.full(700, 5), rng.integers(10, 400, 400)])
+    return rg.from_edges(n, src, dst, rng.integers(1, 101, len(src)))
+
+
+def all_hub_graph():
+    """Every vertex has in-degree 519 > 512: all rows are hub rows, no bucket."""
+    n = 520
+    src, dst = np.nonzero(~np.eye(n, dtype=bool))
+    return rg.from_edges(n, src, dst, np.random.default_rng(2).integers(1, 101, len(src)))
+
+
+SWEEP_GRAPHS = {"star": star_graph, "two_hubs": two_hub_graph, "all_hubs": all_hub_graph,
+                "edgeless": lambda: rg.from_edges(6, np.zeros(0, np.int64),
+                                                  np.zeros(0, np.int64))}
+
+
+def sweep_graph(gname, request, g_skewed):
+    if gname == "skewed":
+        return g_skewed
+    if gname in SWEEP_GRAPHS:
+        return SWEEP_GRAPHS[gname]()
+    return request.getfixturevalue(gname)
+
+
+def sweep_operands(n, seed):
+    """dist with unreached vertices (INF) and a frontier over part of it."""
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, 500, n).astype(np.int32)
+    d[rng.random(n) < 0.3] = INF_I32
+    fr = (rng.random(n) < 0.5) & (d < INF_I32)
+    return d, fr, rng.random(n).astype(np.float32)
+
+
+@pytest.mark.parametrize("gname", ["g_small", "g_medium", "g_road", "g_social", "skewed",
+                                   "star", "two_hubs", "all_hubs", "edgeless"])
+def test_pull_sweep_ops_match_reference(gname, request, g_skewed):
+    """The [N] sliced relax (pulled, with and without a frontier) and
+    gather go through `ell_sweep`; each equals the reference's op."""
+    g = sweep_graph(gname, request, g_skewed)
+    tgr = carry(g)
+    r_ell = rops.prepare_sliced_ell(g, reverse=True)
+    t_ell = tops.prepare_sliced_ell(tgr, reverse=True)
+    d, fr, contrib = sweep_operands(g.num_nodes, seed=g.num_nodes)
+    for _ in range(3):
+        td, tf = torch.from_numpy(d), torch.from_numpy(fr)
+        got = tops.relax_minplus(t_ell, td, frontier=tf, csr=tgr, direction="pull")
+        want = rops.relax_minplus(r_ell, jnp.asarray(d), frontier=jnp.asarray(fr), csr=g,
+                                  direction="pull")
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy(), np.asarray(want))
+        full = tops.relax_minplus(t_ell, td)
+        assert np.array_equal(full.numpy(), np.asarray(rops.relax_minplus(r_ell, jnp.asarray(d))))
+        fr = (got < td).numpy()
+        d = got.numpy()
+    got = tops.gather_plustimes(t_ell, torch.from_numpy(contrib))
+    want = rops.gather_plustimes(r_ell, jnp.asarray(contrib))
+    assert got.shape == (g.num_nodes,) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+@pytest.mark.parametrize("chunk", [7, 100, 128, 650, 4096])
+def test_sweep_hub_chunks_match_reference(chunk):
+    """The hub tail cut into chunks of every kind: at 100 entries row 3
+    spans six chunks and row 5 starts on a chunk edge; at 128 and 650 row 5
+    starts inside the chunk where row 3 ends (its partial takes the
+    chunk's second slot); at 7 both span many chunks; at 4096 both lie in
+    one chunk."""
+    g = two_hub_graph()
+    tgr = carry(g)
+    t_ell = tops.prepare_sliced_ell(tgr, reverse=True)
+    plan = tplan.build_sweep_plan(t_ell, chunk=chunk)
+    assert plan.seg_rows.tolist() == [3, 5] and plan.seg_ptr.tolist() == [0, 600, 1300]
+    spans = (plan.span_last_chunk - plan.span_first_slot // 2 + 1).tolist()
+    if chunk == 100:
+        assert spans == [6, 7] and plan.span_first_slot.tolist() == [0, 12]
+    if chunk in (128, 650):
+        assert plan.span_first_slot.tolist()[-1] == 2 * (600 // chunk) + 1
+    if chunk == 4096:
+        assert spans == []
+    r_ell = rops.prepare_sliced_ell(g, reverse=True)
+    d, fr, contrib = sweep_operands(g.num_nodes, seed=chunk)
+    x = torch.where(torch.from_numpy(fr), torch.from_numpy(d), int(INF_I32))
+    got = ell_sweep(t_ell, plan, x, semiring="minplus", dist=torch.from_numpy(d))
+    want = rops.relax_minplus(r_ell, jnp.asarray(d), frontier=jnp.asarray(fr), csr=g,
+                              direction="pull")
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    got = ell_sweep(t_ell, plan, torch.from_numpy(contrib), semiring="plustimes")
+    want = rops.gather_plustimes(r_ell, jnp.asarray(contrib))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+@pytest.mark.parametrize("gname", ["g_medium", "skewed", "star", "two_hubs", "all_hubs",
+                                   "edgeless"])
+def test_sweep_plan_covers_every_row_once(gname, request, g_skewed):
+    """Segment pointers and rows are the hub tail's runs; every row of the
+    graph is in exactly one of: a bucket, a hub segment, the zero rows."""
+    g = sweep_graph(gname, request, g_skewed)
+    t_ell = tops.prepare_sliced_ell(carry(g), reverse=True)
+    plan = tplan.build_sweep_plan(t_ell)
+    hub = t_ell.hub_rows.numpy()
+    rows, counts = np.unique(hub, return_counts=True)
+    assert plan.seg_rows.numpy().tolist() == rows.tolist()
+    assert plan.seg_ptr.numpy().tolist() == [0] + np.cumsum(counts).tolist()
+    n = g.num_nodes
+    owner = np.concatenate([r.numpy()[r.numpy() < n] for r in t_ell.rows]
+                           + [rows, plan.zero_rows.numpy()]).astype(np.int64)
+    assert np.array_equal(np.sort(owner), np.arange(n))
+    in_deg = np.diff(np.asarray(g.rev_indptr))
+    assert np.array_equal(plan.zero_rows.numpy(), np.nonzero(in_deg == 0)[0])
+    assert plan.num_chunks == -(-len(hub) // plan.chunk)
+    nb = [b[4] for b in plan.buckets]
+    assert plan.num_blocks == plan.num_chunks + sum(nb) + -(-len(plan.zero_rows) // tplan.THREADS)
+    assert [b[2] for b in plan.buckets] == [tplan.lanes_for(int(c.shape[1])) for c in t_ell.cols]
+
+
+def test_lanes_per_bucket_row():
+    assert [tplan.lanes_for(d) for d in (8, 16, 24, 32, 72, 128, 216, 512)] == \
+        [2, 4, 8, 8, 32, 32, 32, 32]
+
+
+def test_sweep_plan_rejects_an_unsorted_hub_tail():
+    import dataclasses
+    t_ell = tops.prepare_sliced_ell(carry(two_hub_graph()), reverse=True)
+    flipped = dataclasses.replace(t_ell, hub_rows=t_ell.hub_rows.flip(0).contiguous())
+    with pytest.raises(ValueError, match="sorted"):
+        tplan.build_sweep_plan(flipped)
+
+
+def test_sweep_plan_built_once_per_graph_and_layout(g_skewed, monkeypatch):
+    """Two programs bound to one graph share one plan, held by the graph's
+    context (so view_nbytes counts it) and found by the ops."""
+    builds = []
+    real = tplan.build_sweep_plan
+    monkeypatch.setattr(tplan, "build_sweep_plan",
+                        lambda ell, **kw: builds.append(ell) or real(ell, **kw))
+    tgr = carry(g_skewed)
+    sched = tcore.Schedule(direction="pull")
+    for name in ("sssp", "sssp_pull"):
+        tcore.compile_bundled(name, backend="cuda", schedule=sched).bind(tgr)(src=0)
+    assert len(builds) == 1
+    ctx = tcore.get_context(tgr)
+    key = ("sweep_plan", True, sched.layout_key())
+    assert key in ctx.view_keys() and ctx.view_nbytes()[key] > 0
+    assert ctx.sweep_plan(sched) is tplan.sweep_plan(ctx.sliced_ell(sched))
+    assert len(builds) == 1
+
+
+def test_sweep_cpu_calls_are_not_kernel_launches(g_skewed):
+    t_ell = tops.prepare_sliced_ell(carry(g_skewed), reverse=True)
+    before = ell_sweep.launches
+    tops.gather_plustimes(t_ell, torch.ones(g_skewed.num_nodes))
+    assert ell_sweep.launches == before
+
+
+@pytest.mark.parametrize("bad,err", [
+    (dict(x=lambda x: x.float()), TypeError),
+    (dict(x=lambda x: x[:-1]), TypeError),
+    (dict(dist=lambda d: None), TypeError),
+    (dict(dist=lambda d: d.long()), TypeError),
+    (dict(semiring="maxplus"), ValueError),
+    (dict(plan="other"), ValueError),
+    (dict(x=lambda x: x.to("meta"), dist=lambda d: d.to("meta")), ValueError),
+])
+def test_ell_sweep_rejects_what_the_kernel_does_not_take(g_skewed, bad, err):
+    t_ell = tops.prepare_sliced_ell(carry(g_skewed), reverse=True)
+    plan = tplan.sweep_plan(t_ell)
+    if bad.get("plan") == "other":
+        plan = tplan.build_sweep_plan(tops.prepare_sliced_ell(carry(two_hub_graph()),
+                                                              reverse=True))
+    d = torch.from_numpy(dist0(g_skewed.num_nodes))
+    x = bad.get("x", lambda x: x)(d)
+    dist = bad.get("dist", lambda d: d)(d)
+    with pytest.raises(err):
+        ell_sweep(t_ell, plan, x, semiring=bad.get("semiring", "minplus"), dist=dist)
 
 
 # --- runtime helpers the ops and the generated code share ----------------------

@@ -16,10 +16,11 @@ import pytest
 import torch
 
 from repro_torch.core import Schedule, compile_bundled
-from repro_torch.graph import INF_I32, preferential_attachment
+from repro_torch.graph import INF_I32, from_edges, preferential_attachment, to_sliced_ell
 from repro_torch.kernels.ell_spmv import ops
-from repro_torch.kernels.ell_spmv.kernel import ell_spmv
-from repro_torch.kernels.ell_spmv.ref import ell_spmv_ref
+from repro_torch.kernels.ell_spmv.kernel import ell_spmv, ell_sweep
+from repro_torch.kernels.ell_spmv.plan import build_sweep_plan
+from repro_torch.kernels.ell_spmv.ref import ell_spmv_ref, ell_sweep_ref
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.kernels.flash_attention.ops import gqa_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -45,6 +46,18 @@ def operands(r, d, semiring, b, device):
         vals = rng.random((r, d)).astype(np.float32)
         x = rng.random(xshape).astype(np.float32)
     return tuple(torch.from_numpy(a).to(device) for a in (cols, vals, x))
+
+
+def child_fails_with_device_assert(code):
+    """Run `code` in a child process (a device-side assert leaves the CUDA
+    context unusable) and check that it stopped on one."""
+    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, env=env)
+    assert proc.returncode != 0
+    assert "device-side assert" in proc.stdout + proc.stderr, proc.stderr[-2000:]
 
 
 @pytest.mark.gpu
@@ -76,7 +89,7 @@ def test_kernel_raises_on_non_contiguous_input(cuda):
 def test_kernel_asserts_on_a_column_past_x(cuda, d):
     """A column outside [0, M) stops the kernel with a device-side assert.
     It runs in a child process: the assert leaves the CUDA context unusable."""
-    code = (
+    child_fails_with_device_assert(
         "import torch\n"
         "from repro_torch.kernels.ell_spmv.kernel import ell_spmv\n"
         f"cols = torch.zeros((64, {d}), dtype=torch.int32, device='cuda')\n"
@@ -85,13 +98,118 @@ def test_kernel_asserts_on_a_column_past_x(cuda, d):
         "x = torch.zeros(65, dtype=torch.int32, device='cuda')\n"
         "ell_spmv(cols, vals, x)\n"
         "torch.cuda.synchronize()\n")
-    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (src, os.environ.get("PYTHONPATH")) if p))
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=300, env=env)
-    assert proc.returncode != 0
-    assert "device-side assert" in proc.stdout + proc.stderr, proc.stderr[-2000:]
+
+
+# --- the one-launch pull sweep ----------------------------------------------------
+
+def star_graph(device):
+    n = 700
+    rng = np.random.default_rng(5)
+    src = np.concatenate([np.arange(1, n), rng.integers(0, n, 300)])
+    dst = np.concatenate([np.zeros(n - 1, np.int64), rng.integers(0, n, 300)])
+    return from_edges(n, src, dst, rng.integers(1, 101, len(src)), device=device)
+
+
+def two_hub_graph(device):
+    """Hub rows 3 and 5 at hub entries 0..599 and 600..1299."""
+    n = 1000
+    rng = np.random.default_rng(9)
+    src = np.concatenate([np.arange(10, 610), np.arange(10, 710), rng.integers(10, n, 400)])
+    dst = np.concatenate([np.full(600, 3), np.full(700, 5), rng.integers(10, 400, 400)])
+    return from_edges(n, src, dst, rng.integers(1, 101, len(src)), device=device)
+
+
+def all_hub_graph(device):
+    n = 520
+    src, dst = np.nonzero(~np.eye(n, dtype=bool))
+    return from_edges(n, src, dst, np.random.default_rng(2).integers(1, 101, len(src)),
+                      device=device)
+
+
+SWEEP_CASES = [("pa", 4096), ("star", 4096), ("star", 100), ("two_hubs", 7),
+               ("two_hubs", 100), ("two_hubs", 128), ("two_hubs", 650), ("all_hubs", 4096),
+               ("all_hubs", 1000), ("edgeless", 4096)]
+
+
+def sweep_case(gname, device):
+    if gname == "pa":
+        return preferential_attachment(3000, m=8, seed=11, device=device)
+    if gname == "edgeless":
+        return from_edges(6, np.zeros(0, np.int64), np.zeros(0, np.int64), device=device)
+    return {"star": star_graph, "two_hubs": two_hub_graph, "all_hubs": all_hub_graph}[gname](
+        device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gname,chunk", SWEEP_CASES)
+def test_sweep_matches_plain_version(cuda, gname, chunk):
+    """The sweep against `ell_sweep_ref` on the same view and plan: int32
+    equal, f32 at rtol 1e-5 (the sums run in another order); two plus-times
+    calls are bitwise equal (fixed order, no atomics)."""
+    g = sweep_case(gname, cuda)
+    ell = to_sliced_ell(g, reverse=True)
+    plan = build_sweep_plan(ell, chunk=chunk)
+    n = g.num_nodes
+    rng = np.random.default_rng(n + chunk)
+    d = rng.integers(0, 500, n).astype(np.int32)
+    d[rng.random(n) < 0.3] = INF_I32
+    dist = torch.from_numpy(d).to(cuda)
+    x = torch.where(torch.from_numpy(rng.random(n) < 0.5).to(cuda), dist, int(INF_I32))
+    before = ell_sweep.launches
+    got = ell_sweep(ell, plan, x, semiring="minplus", dist=dist)
+    torch.cuda.synchronize()
+    assert ell_sweep.launches == before + 1
+    assert torch.equal(got, ell_sweep_ref(ell, plan, x, "minplus", dist))
+    contrib = torch.from_numpy(rng.random(n).astype(np.float32)).to(cuda)
+    got = ell_sweep(ell, plan, contrib, semiring="plustimes")
+    again = ell_sweep(ell, plan, contrib, semiring="plustimes")
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, ell_sweep_ref(ell, plan, contrib, "plustimes"),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ["bucket", "hub"])
+def test_sweep_asserts_on_a_column_past_n(cuda, where):
+    """A bucket column above N (N itself is the sentinel) or a hub column
+    at N stops the sweep with a device-side assert."""
+    if where == "bucket":
+        change = ("c = ell.cols[0].clone()\n"
+                  "c[1, 0] = g.num_nodes + 1\n"
+                  "ell = dataclasses.replace(ell, cols=(c,) + ell.cols[1:])\n")
+    else:
+        change = ("h = ell.hub_cols.clone()\n"
+                  "h[5] = g.num_nodes\n"
+                  "ell = dataclasses.replace(ell, hub_cols=h)\n")
+    child_fails_with_device_assert(
+        "import dataclasses\n"
+        "import numpy as np\n"
+        "import torch\n"
+        "from repro_torch.graph import from_edges, to_sliced_ell\n"
+        "from repro_torch.kernels.ell_spmv.kernel import ell_sweep\n"
+        "from repro_torch.kernels.ell_spmv.plan import build_sweep_plan\n"
+        "n = 700\n"
+        "src = np.concatenate([np.arange(1, n), np.arange(0, n - 1)])\n"
+        "dst = np.concatenate([np.zeros(n - 1, np.int64), np.arange(1, n)])\n"
+        "g = from_edges(n, src, dst, np.ones(len(src), np.int64), device='cuda')\n"
+        "ell = to_sliced_ell(g, reverse=True)\n"
+        + change +
+        "x = torch.zeros(n, dtype=torch.int32, device='cuda')\n"
+        "ell_sweep(ell, build_sweep_plan(ell), x, semiring='minplus', dist=x)\n"
+        "torch.cuda.synchronize()\n")
+
+
+@pytest.mark.gpu
+def test_pull_relax_and_gather_launch_the_sweep(cuda):
+    g = star_graph(cuda)
+    ell = to_sliced_ell(g, reverse=True)
+    dist = torch.full((g.num_nodes,), int(INF_I32), dtype=torch.int32, device=cuda)
+    dist[0] = 0
+    sweeps, tiles = ell_sweep.launches, ell_spmv.launches
+    ops.relax_minplus(ell, dist, frontier=dist == 0, csr=g, direction="pull")
+    ops.gather_plustimes(ell, torch.ones(g.num_nodes, device=cuda))
+    assert (ell_sweep.launches - sweeps, ell_spmv.launches - tiles) == (2, 0)
 
 
 @pytest.mark.gpu
@@ -99,9 +217,9 @@ def test_kernel_asserts_on_a_column_past_x(cuda, d):
 def test_cuda_backend_matches_local_on_the_card(cuda, name):
     g = preferential_attachment(600, m=6, seed=11, device=cuda)
     params = dict(src=0) if name != "pr" else dict(beta=1e-4, delta=0.85, maxIter=60)
-    ell_spmv.launches = 0
+    ell_sweep.launches = 0
     got = compile_bundled(name, backend="cuda").bind(g)(**params)
-    assert ell_spmv.launches > 0
+    assert ell_sweep.launches > 0
     want = compile_bundled(name, backend="local").bind(g)(**params)
     for key in want:
         if want[key].dtype.is_floating_point:
@@ -226,20 +344,13 @@ def test_tc_matmul_asserts_on_a_strictly_lower_entry_not_0_or_1(cuda):
     """0.5 below the diagonal would pack to a wrong int8 count: the pack
     pass stops with a device-side assert instead. In a child process, as
     the assert leaves the CUDA context unusable."""
-    code = (
+    child_fails_with_device_assert(
         "import torch\n"
         "from repro_torch.kernels.tc_matmul.kernel import tc_matmul\n"
         "lower = torch.zeros((256, 256), device='cuda')\n"
         "lower[200, 3] = 0.5\n"
         "print(float(tc_matmul(lower)))\n"
         "torch.cuda.synchronize()\n")
-    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (src, os.environ.get("PYTHONPATH")) if p))
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=300, env=env)
-    assert proc.returncode != 0
-    assert "device-side assert" in proc.stdout + proc.stderr, proc.stderr[-2000:]
 
 
 @pytest.mark.gpu
