@@ -37,20 +37,36 @@ Phases, each printed with its own seconds; any failure exits non-zero:
                timed (host clock ending in synchronize()), with the
                kernels' launch counts (`ell_sweep`, `ell_spmv`) reset just
                before it and read just after; every run must launch the
-               sweep;
+               sweep. Then, on the same graph, the other bundled programs:
+               bc over 32 sources drawn with --seed from the vertices of
+               out-degree > 0 (one chunk of the default batch_sources) and
+               over 2 of them with batch_sources=1, ppr (beta 1e-4, delta
+               0.85, maxIter 20) over the 32 and over 4 with
+               batch_sources=1 (which must launch `ell_sweep`), cc, lp and
+               kcore with k = 8; each prints its BFS levels, [B, E] sums
+               and sweeps, and its peak memory above what was allocated
+               just before the call (the graph, its views, earlier results);
   6. check   — every result against the port's `local` backend on the same
-               card (dist equal, pageRank at rtol 1e-4 and atol 1e-9: ranks
-               are about 1/N), dist against scipy's Dijkstra and pageRank
-               against a float64 power iteration of the same length (rtol
-               1e-4);
+               card (int32 outputs equal, pageRank and ppr at rtol 1e-4 and
+               atol 1e-9: ranks are about 1/N; BC at rtol 1e-4 and atol
+               1e-4 with its nan positions compared), dist against scipy's
+               Dijkstra and pageRank against a float64 power iteration of
+               the same length (rtol 1e-4); then phase `oracles` holds both
+               backends on the card against host oracles in numpy/scipy on
+               rmat(16) (bc: Brandes in float64 over 8 sources; ppr: a
+               per-lane float64 iteration with the same stop rule; kcore
+               k = 8: numpy peeling) and its symmetrised copy (cc and lp:
+               the least vertex id of each connected component);
   7. trace   — with --trace only: one more call of each `cuda` run under
-               torch.profiler, printing the device time by kernel, the
-               device-busy share of the traced call (kernel time over wall
-               time; one stream, so kernels do not overlap) and the traced
-               call's wall time beside the untraced one (the tracing cost);
-               the runs that only pull (sssp pinned to pull, pr) must show
-               no scatter or index_add kernel; phase 9 then traces one prefill and one decode step the same
-               way, and phase 10 three tc_matmul calls (pack and products);
+               torch.profiler (the graph runs of phase 5, batched bc and
+               batched ppr among them), printing the device time by kernel,
+               the device-busy share of the traced call (kernel time over
+               wall time; one stream, so kernels do not overlap) and the
+               traced call's wall time beside the untraced one (the
+               tracing cost); the runs that only pull (sssp pinned to pull,
+               pr) must show no scatter or index_add kernel; phase 9 then
+               traces one prefill and one decode step the same way, and
+               phase 10 three tc_matmul calls (pack and products);
   8. lm-kernels — `flash_attention` against `attention_ref` on the same
                seeded inputs: the reference's test shapes and two with
                SQ < 8 (f32 at atol 2e-5, bf16 at 3e-2, causal and not) and
@@ -75,15 +91,19 @@ Phases, each printed with its own seconds; any failure exits non-zero:
                and to `tc_matmul_ref`; the kernel (int8 wgmma) timed beside
                its bound (the strict-lower products at the int8 rate, the
                bf16 figure printed beside it), the plain version and a bf16
-               matmul-and-mask.
+               matmul-and-mask. Then the DSL's tc, compile_bundled("tc",
+               backend="cuda") on the symmetrised graph (the wedge count),
+               equal to scipy's count and count_triangles_dense's there,
+               with the wedge blocks' largest degree D, their chunk C and
+               the second call's seconds.
 
 The line before the last is {"kernels": [...]} (ell_spmv's two semirings,
 reported by the sweep that the main path runs, flash_attention.bf16 and
 tc_matmul.f32); the last line is {"ok": true,
 "device": {...}}. Without a CUDA device the run fails; a `--device cpu`
 rehearsal runs phases 3, 5, 6 and 8 to 10 with the plain versions at smoke
-sizes (the LM's smoke config, a 256-token prefill, RMAT 8), prints no
-result line and exits 3: it is not a smoke run.
+sizes (the LM's smoke config, a 256-token prefill, RMAT 8 for every
+graph), prints no result line and exits 3: it is not a smoke run.
 """
 from __future__ import annotations
 
@@ -400,39 +420,78 @@ RUNS = (("sssp", "auto", dict(src=0)),
         ("sssp", "pull", dict(src=0)),
         ("sssp_pull", "auto", dict(src=0)),
         ("pr", "auto", dict(beta=1e-4, delta=0.85, maxIter=100)))
+SET_SOURCES = 32       # one chunk of the default Schedule.batch_sources
+PPR_PARAMS = dict(beta=1e-4, delta=0.85, maxIter=20)
 
 
-def drive(g, backend, name, direction, params, on_card):
+def set_runs(srcs):
+    """(program, run, Schedule knobs, params) of the other bundled programs:
+    bc and ppr over `srcs` batched and over a few of them one source at a
+    time, then cc, lp and kcore."""
+    return (("bc", "batched", {}, dict(sourceSet=srcs)),
+            ("bc", "sequential", dict(batch_sources=1), dict(sourceSet=srcs[:2])),
+            ("ppr", "batched", {}, dict(PPR_PARAMS, sourceSet=srcs)),
+            ("ppr", "sequential", dict(batch_sources=1), dict(PPR_PARAMS, sourceSet=srcs[:4])),
+            ("cc", "auto", {}, {}),
+            ("lp", "auto", {}, {}),
+            ("kcore", "auto", {}, dict(k=8)))
+
+
+def pick_sources(g, count, seed):
+    """`count` distinct vertices of out-degree > 0, drawn with `seed`."""
+    cand = np.flatnonzero(g.out_degree.cpu().numpy() > 0)
+    return np.random.default_rng(seed).choice(cand, count, replace=False).astype(np.int32)
+
+
+def drive(g, backend, name, run, params, on_card, knobs=None):
     """Compile, bind, call once to warm, then the timed call with the
-    launch and step counters set to 0 just before it and read just after
-    (`launches`: the rectangular `ell_spmv`; `sweep_launches`: `ell_sweep`)."""
+    launch, step and engine counters set to 0 just before it and read just
+    after (`launches`: the rectangular `ell_spmv`; `sweep_launches`:
+    `ell_sweep`; `bfs_*`: the BFS calls and their levels; `batch_sums`:
+    the [B, E] segment sums). `knobs` are the Schedule's; None pins the
+    direction to `run`. The peak is counted above what is allocated just
+    before the timed call."""
     import torch
     from repro_torch.core import Schedule, compile_bundled
+    from repro_torch.core import runtime as rt
     from repro_torch.kernels.ell_spmv import ops
     from repro_torch.kernels.ell_spmv.kernel import ell_spmv, ell_sweep
-    bound = compile_bundled(name, backend=backend,
-                            schedule=Schedule(direction=direction)).bind(g)
+    sched = Schedule(**(dict(direction=run) if knobs is None else knobs))
+    bound = compile_bundled(name, backend=backend, schedule=sched).bind(g)
     bound(**params)
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     sync()
+    held = torch.cuda.memory_allocated() if on_card else None
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     ell_spmv.launches = ell_sweep.launches = 0
     ops.relax_minplus.push_steps = ops.relax_minplus.pull_steps = 0
+    rt.bfs_levels_batch.calls = rt.bfs_levels_batch.levels = 0
+    rt.segment_sum_batch.calls = 0
     t = time.perf_counter()
     out = bound(**params)
     sync()
     secs = time.perf_counter() - t
-    info = dict(program=name, backend=backend, direction=direction, seconds=secs,
+    info = dict(program=name, backend=backend, run=run, direction=sched.direction,
+                batch_sources=sched.batch_sources, seconds=secs,
                 launches=ell_spmv.launches, sweep_launches=ell_sweep.launches,
                 push_steps=ops.relax_minplus.push_steps,
                 pull_steps=ops.relax_minplus.pull_steps,
-                peak_bytes=torch.cuda.max_memory_allocated() if on_card else None)
+                bfs_calls=rt.bfs_levels_batch.calls, bfs_levels=rt.bfs_levels_batch.levels,
+                batch_sums=rt.segment_sum_batch.calls,
+                peak_bytes=torch.cuda.max_memory_allocated() if on_card else None,
+                held_bytes=held,
+                peak_above_held_bytes=torch.cuda.max_memory_allocated() - held if on_card
+                else None)
     if name == "pr":
         info["iterations"] = int(out["iterCount"])
-    else:
+    elif name in ("sssp", "sssp_pull"):
         info["iterations"] = info["push_steps"] + info["pull_steps"] if backend == "cuda" \
             else None
+    if "finished" in out:
+        info["finished"] = bool(out["finished"])
+    if "sourceSet" in params:
+        info["sources"] = len(params["sourceSet"])
     return bound, out, info
 
 
@@ -497,21 +556,11 @@ def check_results(g, results, t0):
     import torch
     dist_ref = dijkstra_ref(g)
     for (name, direction), out in results["cuda"].items():
-        local = results["local"][(name, direction)]
-        for key, want in local.items():
-            got = out[key]
-            if tuple(got.shape) != tuple(want.shape) or got.dtype != want.dtype:
-                fail(f"{name}/{direction}.{key}: {got.shape} {got.dtype} vs local "
-                     f"{want.shape} {want.dtype}")
-            if got.dtype.is_floating_point:
-                if not bool(torch.isfinite(got).all()):
-                    fail(f"{name}.{key}: non-finite values")
-                # `diff` is an L1 sum of tiny differences: its own rounding
-                # is not compared, only the ranks and the iteration count
-                if key.startswith("pageRank"):
-                    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-9)
-            elif not torch.equal(got, want):
-                fail(f"{name}/{direction}.{key}: cuda != local")
+        compare_outputs(out, results["local"][(name, direction)],
+                        f"{name}/{direction} cuda vs local")
+        for key, got in out.items():
+            if got.dtype.is_floating_point and not bool(torch.isfinite(got).all()):
+                fail(f"{name}.{key}: non-finite values")
         if name == "pr":
             iters = int(out["iterCount"])
             rank = pagerank_ref(g, iters)
@@ -527,6 +576,197 @@ def check_results(g, results, t0):
             print(f"  {name}/{direction}: dist == Dijkstra "
                   f"({int(np.sum(dist < 2**30))} reachable)")
     phase("check", t0, "cuda == local, dist == Dijkstra, pageRank == float64 iteration")
+
+
+def compare_outputs(got, want, what):
+    """`cuda` against `local` on the card: int32 and bool outputs equal;
+    BC at rtol 1e-4, atol 1e-4 with its nan positions compared, not its
+    values (sigma overflows float32 on deep graphs in both reference
+    backends); ppr and pageRank at rtol 1e-4, atol 1e-9 (ranks are about
+    1/N). Other floats (pr's `diff`, an L1 sum of tiny differences) are
+    not compared: only the ranks and the iteration count."""
+    import torch
+    for key, w in want.items():
+        x = got[key]
+        if tuple(x.shape) != tuple(w.shape) or x.dtype != w.dtype:
+            fail(f"{what}.{key}: {tuple(x.shape)} {x.dtype} vs {tuple(w.shape)} {w.dtype}")
+        if not x.dtype.is_floating_point:
+            if not torch.equal(x, w):
+                fail(f"{what}.{key}: {int((x != w).sum())} entries differ")
+        elif key == "BC":
+            if not torch.equal(torch.isnan(x), torch.isnan(w)):
+                fail(f"{what}.BC: nan positions differ")
+            ok = ~torch.isnan(w)
+            torch.testing.assert_close(x[ok], w[ok], rtol=1e-4, atol=1e-4)
+        elif key in ("ppr", "pageRank"):
+            torch.testing.assert_close(x, w, rtol=1e-4, atol=1e-9)
+
+
+def check_set_results(set_results):
+    for (name, run), out in set_results["cuda"].items():
+        compare_outputs(out, set_results["local"][(name, run)], f"{name}/{run} cuda vs local")
+        if name == "bc":
+            bc = out["BC"]
+            detail = dict(nan=int(bc.isnan().sum()), max=float(bc[~bc.isnan()].max()))
+        elif name == "ppr":
+            detail = dict(sum=float(out["ppr"].sum()))
+        elif name in ("cc", "lp"):
+            key = "comp" if name == "cc" else "label"
+            detail = dict(distinct=int(out[key].unique().numel()))
+        elif name == "kcore":
+            detail = dict(survivors=int(out["core"].sum()))
+        print(f"  {name}/{run}: cuda == local {json.dumps(detail)}")
+
+
+# --------------------------------------------------------------------------
+# host oracles (numpy/scipy) for the other bundled programs
+# --------------------------------------------------------------------------
+
+def host_csr(g):
+    import scipy.sparse as sp
+    n = g.num_nodes
+    src, dst = g.edge_src.cpu().numpy(), g.indices.cpu().numpy()
+    return sp.csr_matrix((np.ones(len(src)), (src, dst)), shape=(n, n)), src, dst
+
+
+def brandes_ref(g, sources):
+    """Brandes BC in float64 over bc.sp's out-edge BFS DAG, one source at a
+    time and one level at a time as sparse products: sigma of level l + 1
+    sums the sigma of level l over in-edges from it; delta(v) = sigma(v) ·
+    Σ over DAG successors w of (1 + delta(w)) / sigma(w); BC sums delta
+    over every reached v but the source."""
+    a, _, _ = host_csr(g)
+    at = a.T.tocsr()
+    n = g.num_nodes
+    bc = np.zeros(n)
+    for s in sources:
+        level = np.full(n, -1)
+        level[s] = 0
+        frontier = np.zeros(n)
+        frontier[s] = 1.0
+        depth = 0
+        while True:
+            new = (at @ frontier > 0) & (level < 0)
+            if not new.any():
+                break
+            depth += 1
+            level[new] = depth
+            frontier = new.astype(np.float64)
+        sigma = np.zeros(n)
+        sigma[s] = 1.0
+        for k in range(depth):
+            nxt = level == k + 1
+            sigma[nxt] = (at @ np.where(level == k, sigma, 0.0))[nxt]
+        delta = np.zeros(n)
+        for k in range(depth - 1, -1, -1):
+            nxt = level == k + 1
+            term = np.where(nxt, (1.0 + delta) / np.where(nxt, sigma, 1.0), 0.0)
+            cur = level == k
+            delta[cur] = (sigma * (a @ term))[cur]
+        reached = level >= 0
+        reached[s] = False
+        bc[reached] += delta[reached]
+    return bc
+
+
+def ppr_ref(g, sources, beta, delta, max_iter):
+    """ppr.sp per lane in float64: rank' = (1 - delta)·restart + delta ·
+    Σ over in-neighbours u of rank(u)/outdeg(u), stopping after the sweep
+    whose L1 change is at most beta or the max_iter-th; the lanes summed.
+    Returns (sum, sweeps per lane)."""
+    import scipy.sparse as sp
+    n = g.num_nodes
+    _, src, dst = host_csr(g)
+    outdeg = g.out_degree.cpu().numpy().astype(np.float64)
+    pull = sp.csr_matrix((1.0 / outdeg[src], (dst, src)), shape=(n, n))
+    total, sweeps = np.zeros(n), []
+    for s in sources:
+        restart = np.zeros(n)
+        restart[s] = 1.0
+        rank, it = restart, 0
+        while True:
+            nxt = (1 - delta) * restart + delta * (pull @ rank)
+            diff = np.abs(nxt - rank).sum()
+            rank, it = nxt, it + 1
+            if not (diff > beta and it < max_iter):
+                break
+        total += rank
+        sweeps.append(it)
+    return total, sweeps
+
+
+def component_min_ref(g):
+    """The least vertex id of each weakly connected component."""
+    from scipy.sparse.csgraph import connected_components
+    a, _, _ = host_csr(g)
+    ncomp, lab = connected_components(a, directed=True, connection="weak")
+    least = np.full(ncomp, g.num_nodes)
+    np.minimum.at(least, lab, np.arange(g.num_nodes))
+    return least[lab].astype(np.int32)
+
+
+def kcore_ref(g, k):
+    """kcore.sp's peeling in numpy: each sweep drops every survivor with
+    fewer than k surviving out-neighbours, until a sweep drops none."""
+    _, src, dst = host_csr(g)
+    core = np.ones(g.num_nodes, bool)
+    while True:
+        live = core[src] & core[dst]
+        peel = core & (np.bincount(src[live], minlength=g.num_nodes) < k)
+        if not peel.any():
+            return core.astype(np.int32)
+        core &= ~peel
+
+
+def symmetrised(g):
+    from repro_torch.graph import from_edges
+    return from_edges(g.num_nodes, g.edge_src.cpu().numpy(), g.indices.cpu().numpy(),
+                      g.weights.cpu().numpy(), undirected=True, device=g.device)
+
+
+def oracle_phase(scale, seed, dev):
+    """Both backends on the card against the host oracles: bc, ppr (batched
+    and one source at a time) and kcore on rmat(scale), cc and lp on its
+    symmetrised copy."""
+    import torch
+    from repro_torch.core import Schedule, compile_bundled
+    from repro_torch.graph import rmat
+    g = rmat(scale, edge_factor=16, seed=seed, device=dev)
+    gs = symmetrised(g)
+    srcs = pick_sources(g, 8, seed)
+    least = component_min_ref(gs)
+    beta, delta, max_iter = (PPR_PARAMS[k] for k in ("beta", "delta", "maxIter"))
+    ppr_sum, sweeps = ppr_ref(g, srcs, beta, delta, max_iter)
+    ppr_seq, _ = ppr_ref(g, srcs[:4], beta, delta, max_iter)
+    cases = (("bc", {}, g, dict(sourceSet=srcs), "BC", brandes_ref(g, srcs)),
+             ("ppr", {}, g, dict(PPR_PARAMS, sourceSet=srcs), "ppr", ppr_sum),
+             ("ppr", dict(batch_sources=1), g, dict(PPR_PARAMS, sourceSet=srcs[:4]), "ppr",
+              ppr_seq),
+             ("kcore", {}, g, dict(k=8), "core", kcore_ref(g, 8)),
+             ("cc", {}, gs, {}, "comp", least),
+             ("lp", {}, gs, {}, "label", least))
+    for name, knobs, graph, params, key, want in cases:
+        for backend in ("cuda", "local"):
+            got = compile_bundled(name, backend=backend, schedule=Schedule(**knobs)).bind(
+                graph)(**params)[key].cpu().numpy()
+            what = f"{name}{'/sequential' if knobs else ''} {backend} on rmat({scale})" \
+                   f"{' symmetrised' if graph is gs else ''}"
+            if got.dtype.kind == "f":
+                if not np.isfinite(got).all():
+                    fail(f"{what}: non-finite values")
+                atol = 1e-4 if name == "bc" else 1e-9
+                np.testing.assert_allclose(got, want, rtol=1e-4, atol=atol, err_msg=what)
+                err = float(np.max(np.abs(got - want)))
+            else:
+                if not np.array_equal(got, want):
+                    fail(f"{what}: {int((got != want).sum())} vertices differ from the oracle")
+                err = 0.0
+            print(f"  {what}: == oracle (max abs err {err:.3e})")
+    print(f"  rmat({scale}): N={g.num_nodes} E={g.num_edges}, symmetrised E={gs.num_edges}; "
+          f"ppr oracle sweeps per lane {sweeps}; components {len(np.unique(least))}")
+    del g, gs
+    if dev == "cuda":
+        torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------
@@ -790,6 +1030,32 @@ def scipy_triangles(g):
     return int((lower @ lower).multiply(lower).sum())
 
 
+def dsl_tc(g, sync):
+    """The DSL's tc (the wedge count, `rt.wedge_count`) through the cuda
+    backend on the symmetrised graph, against scipy's count and
+    count_triangles_dense's on the same graph; the second call timed."""
+    from repro_torch.core import compile_bundled
+    from repro_torch.core import runtime as rt
+    from repro_torch.kernels.tc_matmul.ops import count_triangles_dense, prepare_lower
+    gs = symmetrised(g)
+    bound = compile_bundled("tc", backend="cuda").bind(gs)
+    bound()
+    sync()
+    t = time.perf_counter()
+    got = bound()["triangle_count"]
+    sync()
+    secs = time.perf_counter() - t
+    want = scipy_triangles(gs)
+    dense = int(count_triangles_dense(prepare_lower(gs)))
+    if got.dtype.is_floating_point or int(got) != want or dense != want:
+        fail(f"DSL tc = {int(got)} ({got.dtype}), scipy {want}, count_triangles_dense {dense}")
+    w = rt.wedge_count.last
+    print("  " + json.dumps(dict(call="dsl tc", backend="cuda", E=gs.num_edges, triangles=want,
+                                 seconds=secs, max_degree=w["max_degree"],
+                                 chunk_at_max_degree=w["chunk_at_max_degree"],
+                                 chunks=w["chunks"], vertices=w["vertices"])))
+
+
 def tc_phase(seed, dev, on_card, scale, trace):
     import torch
     from repro_torch.graph import rmat
@@ -820,6 +1086,7 @@ def tc_phase(seed, dev, on_card, scale, trace):
     info = dict(scale=scale, N=n, E=g.num_edges, triangles=want, setup_s=setup_s,
                 path_s=path_s, launches=launches)
     print("  " + json.dumps(info))
+    dsl_tc(g, sync)
     if not on_card:
         return None
     dense_flops = 2 * n ** 3
@@ -927,11 +1194,32 @@ def main(argv=None):
         results["local"][(name, direction)] = out
         infos.append(info)
         print("  " + json.dumps(info))
+    srcs = pick_sources(g, SET_SOURCES, args.seed)
+    print(f"  sources (seed {args.seed}): {srcs.tolist()}")
+    set_results, set_infos = {"cuda": {}, "local": {}}, []
+    for backend in ("cuda", "local"):
+        for name, run, knobs, params in set_runs(srcs):
+            bound, out, info = drive(g, backend, name, run, params, on_card, knobs)
+            if backend == "cuda":
+                bounds[(name, run)] = (bound, params)
+                if on_card and name == "ppr" and run == "sequential" \
+                        and info["sweep_launches"] == 0:
+                    fail("sequential ppr launched no ell_sweep kernel")
+            set_results[backend][(name, run)] = out
+            set_infos.append(info)
+            print("  " + json.dumps(info))
     phase("main", t0, "compile_bundled(..., backend='cuda').bind(g)(...)")
 
     # 6. check
     t0 = time.perf_counter()
     check_results(g, results, t0)
+    t0 = time.perf_counter()
+    check_set_results(set_results)
+    phase("check-programs", t0, "bc, ppr, cc, lp, kcore: cuda == local")
+    t0 = time.perf_counter()
+    oracle_phase(16 if on_card else args.scale, args.seed, args.device)
+    phase("oracles", t0, "bc == Brandes, ppr == float64 iteration, cc and lp == least id "
+          "per component, kcore == numpy peeling")
 
     # 7. trace (optional)
     if on_card and args.trace:
@@ -950,8 +1238,16 @@ def main(argv=None):
                 if scatters or not sweep:
                     fail(f"{name}/{direction} pulls only, yet traced {scatters[:3]} "
                          f"and sweep kernels {sweep}")
+        for name, run in (("bc", "batched"), ("ppr", "batched")):
+            bound, params = bounds[(name, run)]
+            info = next(i for i in set_infos if i["backend"] == "cuda"
+                        and (i["program"], i["run"]) == (name, run))
+            tr = trace_run(lambda: bound(**params))
+            tr.pop("kernels")
+            print("  " + json.dumps(dict(program=name, run=run, untraced_ms=info["seconds"] * 1e3,
+                                         **tr)))
         phase("trace", t0, "torch.profiler, one call per cuda run; no scatter in a pull")
-    del g, ell, results, bounds
+    del g, ell, results, bounds, set_results
     dev = args.device
 
     # 8. lm-kernels
@@ -971,7 +1267,8 @@ def main(argv=None):
     # 10. tc
     t0 = time.perf_counter()
     tc = tc_phase(args.seed, dev, on_card, 14 if on_card else 8, on_card and args.trace)
-    phase("tc", t0, "count_triangles_dense == scipy == tc_matmul_ref")
+    phase("tc", t0, "count_triangles_dense == scipy == tc_matmul_ref; DSL tc == scipy == "
+          "count_triangles_dense on the symmetrised graph")
 
     if not on_card:
         print("rehearsal finished: plain versions on the CPU — not a smoke run")
@@ -982,12 +1279,12 @@ def main(argv=None):
     # from the main-path runs that use it
     kernels = []
     for semiring, cname, progs in (("minplus", "minplus_i32", ("sssp", "sssp_pull")),
-                                   ("plustimes", "plustimes_f32", ("pr",))):
+                                   ("plustimes", "plustimes_f32", ("pr", "ppr"))):
         sw = sweeps[semiring]
         mine = [r for r in shapes if r["semiring"] == semiring]
         kernels.append(dict(
             name=f"ell_spmv.{cname}", route="cuda", source=SOURCE, replaces=REPLACES,
-            launches=sum(i["launches"] + i["sweep_launches"] for i in infos
+            launches=sum(i["launches"] + i["sweep_launches"] for i in infos + set_infos
                          if i["backend"] == "cuda" and i["program"] in progs),
             max_abs_err=max([sw["max_abs_err"]] + [r["max_abs_err"] for r in mine]),
             ms=sw["ms"], plain_ms=sw["plain_ms"], bound_ms=sw["bound_ms"],

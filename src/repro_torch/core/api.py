@@ -122,6 +122,15 @@ class BoundProgram:
                 f"E={g.num_edges}, device={g.device})")
 
 
+def _bind_sets(g, kw: dict, sets: tuple) -> dict:
+    """`SetN` arguments (a tensor, a numpy array or a list of vertex ids)
+    as int32 tensors on the graph's device."""
+    for name in sets:
+        if kw.get(name) is not None:
+            kw[name] = torch.as_tensor(kw[name], dtype=torch.int32, device=g.device)
+    return kw
+
+
 def _exec_generated(src: str, fn_name: str, extra_env: Optional[dict] = None):
     """Exec the generated module source; returns its namespace."""
     env = {"torch": torch, "rt": rt}
@@ -219,11 +228,16 @@ def compile_program(source: str, backend: str = "local",
     src = _PRELUDE + body
     raw = _exec_generated(src, irfn.name, extra_env)[irfn.name]
 
+    sets = tuple(p.name for p in irfn.params if p.kind == "set_n")
     if backend == "cuda":
         def fn(g, *, _raw=raw, _sched=sched, **kw):
             # degree-bucketed reverse (in-edge) view, owned by the graph's
             # shared GraphContext — built once per (graph, layout)
-            return _raw(g, get_context(g).sliced_ell(_sched, reverse=True), **kw)
+            return _raw(g, get_context(g).sliced_ell(_sched, reverse=True),
+                        **_bind_sets(g, kw, sets))
+    elif sets:
+        def fn(g, *, _raw=raw, **kw):
+            return _raw(g, **_bind_sets(g, kw, sets))
     else:
         fn = raw
     prog = CompiledProgram(

@@ -89,8 +89,11 @@ class CudaCodegen(LocalCodegen):
     # ---- hot pattern 2: neighborhood sum → sliced-ELL (+,×) kernel -----------
     def s_IAssign(self, s: I.IAssign, ctx):
         ectx = self._edge_ctx(ctx)
+        # the sweep produces one [N] vector: batched ([B, N]) regions and
+        # per-source lane scalars keep the inherited segment lowering
         if (s.reduce_op == "+" and s.vertex_local and ectx is not None
                 and ectx.direction == "in" and ectx.mask is None
+                and self.batch is None and s.name not in self.lane_scalars
                 and _only_reads_side(s.expr, ectx.it)):
             em = self.em
             contrib = em.uid("contrib")

@@ -14,6 +14,7 @@ scalar and return a Python bool.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..graph.csr import INF_I32, CSRGraph
@@ -78,6 +79,137 @@ def segment_min(vals, seg_ids, num_segments, sorted_ids=True):
 def segment_max(vals, seg_ids, num_segments, sorted_ids=True):
     vals = torch.as_tensor(vals)
     return _segment(vals, seg_ids, num_segments, "amax", _identity_min(vals.dtype))
+
+
+# --- batched (multi-source) scatter / segment combines -----------------------
+#
+# The batched engine carries per-source properties as [B, N] tensors; the
+# per-edge values they induce are [B, E]. Each op below reduces along the
+# last axis with the [E] index shared by every row (a stride-0 expand, never
+# a [B, E] index), so the lanes ride along without a transpose. The
+# reference drops out-of-range ids (`mode="drop"`); here they land in a
+# spare column N that is sliced off, as the batched kernel ops do.
+
+def _spare_col(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """int64 ids with every id outside [0, n) sent to the spare column n."""
+    idx = idx.long()
+    return torch.where((idx >= 0) & (idx < n), idx, n)
+
+
+def _segment_rows(vals, seg_ids, num_segments, reduce, fill):
+    b = vals.shape[0]
+    out = torch.full((b, num_segments + 1), fill, dtype=vals.dtype, device=vals.device)
+    idx = _spare_col(seg_ids, num_segments)[None, :].expand(vals.shape)
+    out.scatter_reduce_(1, idx, vals, reduce)
+    return out[:, :num_segments].contiguous()
+
+
+def segment_sum_batch(vals, seg_ids, num_segments, sorted_ids=True):
+    """vals [B, E], seg_ids [E] → [B, num_segments]. Float sums add with
+    atomics on the card, so their order is not fixed."""
+    segment_sum_batch.calls += 1
+    out = torch.zeros((vals.shape[0], num_segments + 1), dtype=vals.dtype,
+                      device=vals.device)
+    out.index_add_(1, _spare_col(seg_ids, num_segments), vals)
+    return out[:, :num_segments].contiguous()
+
+
+# [B, E] sums in this process (one per sweep of batched ppr, one per BFS
+# level and pass of batched bc)
+segment_sum_batch.calls = 0
+
+
+def segment_min_batch(vals, seg_ids, num_segments, sorted_ids=True):
+    return _segment_rows(vals, seg_ids, num_segments, "amin", _identity_max(vals.dtype))
+
+
+def segment_max_batch(vals, seg_ids, num_segments, sorted_ids=True):
+    return _segment_rows(vals, seg_ids, num_segments, "amax", _identity_min(vals.dtype))
+
+
+def _with_spare(current: torch.Tensor) -> torch.Tensor:
+    """[B, N] → a fresh [B, N + 1] copy whose last column is spare."""
+    out = torch.empty((current.shape[0], current.shape[1] + 1), dtype=current.dtype,
+                      device=current.device)
+    out[:, :-1] = current
+    return out
+
+
+def scatter_min_rows(current, idx, cand):
+    """Row-wise scatter-min: current [B, N], idx [E], cand [B, E]."""
+    n = current.shape[1]
+    out = _with_spare(current)
+    out.scatter_reduce_(1, _spare_col(idx, n)[None, :].expand(cand.shape), cand, "amin")
+    return out[:, :n].contiguous()
+
+
+def scatter_add_rows(current, idx, vals):
+    n = current.shape[1]
+    out = _with_spare(current)
+    out.index_add_(1, _spare_col(idx, n), vals)
+    return out[:, :n].contiguous()
+
+
+def scatter_or_rows(current, idx, vals):
+    """Row-wise scatter-or of bool `vals` [B, E] into bool `current`
+    [B, N], as an int32 segment max (B·E·4 bytes, whatever the data)."""
+    return current | (segment_max_batch(vals.to(torch.int32), idx, current.shape[1]) > 0)
+
+
+# --- graph queries ------------------------------------------------------------
+
+def _edge_key_fits_i32(n: int) -> bool:
+    return n * n < 2**31
+
+
+def _is_an_edge_keyed(g: CSRGraph, u, w):
+    """Fast path: binary search over the cached sorted (src·N + dst) int32
+    key, valid only while N² fits int32. The query stays int32, as the key
+    is."""
+    key = g.edge_key
+    q = u.to(torch.int32) * g.num_nodes + w.to(torch.int32)
+    pos = torch.searchsorted(key, q)
+    pos = torch.clamp(pos, 0, key.shape[0] - 1)
+    return key[pos] == q
+
+
+def _is_an_edge_rowsearch(g: CSRGraph, u, w):
+    """Large-graph path (N² ≥ 2³¹): per-query binary search of `w` inside
+    CSR row `u`, a fixed number of lower_bound steps over
+    indices[indptr[u] : indptr[u+1]], so no composite key (and no int64
+    key) is ever formed."""
+    e = g.num_edges
+    n = g.num_nodes
+    uc = torch.clamp(u, 0, n - 1).long()
+    lo = g.indptr[uc].to(torch.int32)
+    row_end = g.indptr[uc + 1].to(torch.int32)
+    shape = torch.broadcast_shapes(lo.shape, w.shape)
+    lo = lo.expand(shape)
+    row_end = row_end.expand(shape)
+    hi = row_end
+    steps = max(int(g.max_out_degree), 1).bit_length() + 1
+    for _ in range(steps):
+        active = lo < hi
+        mid = (lo + hi) >> 1
+        go_right = g.indices[torch.clamp(mid, 0, e - 1)] < w
+        lo = torch.where(active & go_right, mid + 1, lo)
+        hi = torch.where(active & ~go_right, mid, hi)
+    return ((lo < row_end) & (g.indices[torch.clamp(lo, 0, e - 1)] == w)
+            & (u >= 0) & (u < n))   # match the keyed path on out-of-range u
+
+
+def is_an_edge(g: CSRGraph, u, w) -> torch.Tensor:
+    """Membership test, the paper's `is_an_edge` with sorted-CSR binary
+    search (§5.1 TC). Graphs whose N² fits int32 search the cached
+    composite key; larger ones search the row range. Broadcasts over u/w."""
+    u = torch.as_tensor(u, device=g.device)
+    w = torch.as_tensor(w, device=g.device)
+    if g.num_edges == 0:
+        return torch.zeros(torch.broadcast_shapes(u.shape, w.shape), dtype=torch.bool,
+                           device=g.device)
+    if _edge_key_fits_i32(g.num_nodes):
+        return _is_an_edge_keyed(g, u, w)
+    return _is_an_edge_rowsearch(g, u, w)
 
 
 # --- frontier engine (direction-optimizing traversal) --------------------------
@@ -168,6 +300,233 @@ def _cond_by_rows(rows_push, push_all, pull_all, mixed, arg):
     return pull_all(arg)
 
 
+def relax_minplus_hybrid_batch(g: CSRGraph, dist: torch.Tensor,
+                               frontier: torch.Tensor | None = None,
+                               threshold_frac: float | None = None,
+                               direction: str = "auto",
+                               weighted: bool = True) -> torch.Tensor:
+    """Batched SSSP/min-plus relaxation: dist [B, N], frontier [B, N] bool.
+
+    Row-for-row identical to `relax_minplus_hybrid` on each dist row with
+    its frontier row: push rows scatter-min over out-edges, pull rows
+    segment-min over in-edges, and rows are routed independently. (One of
+    the push/pull copies — see the NOTE on `relax_minplus_hybrid`.)"""
+    n = g.num_nodes
+
+    def push(d, fr):
+        cand = d[:, g.edge_src] + g.weights[None, :] if weighted \
+            else d[:, g.edge_src]
+        if fr is not None:
+            cand = torch.where(fr[:, g.edge_src], cand, INF)
+        return scatter_min_rows(d, g.indices, cand)
+
+    def pull(d, fr):
+        cand = d[:, g.rev_indices] + g.rev_weights[None, :] if weighted \
+            else d[:, g.rev_indices]
+        if fr is not None:
+            cand = torch.where(fr[:, g.rev_indices], cand, INF)
+        return torch.minimum(d, segment_min_batch(cand, g.rev_edge_dst, n))
+
+    if frontier is None:
+        return pull(dist, None)
+    if direction == "push":
+        return push(dist, frontier)
+    if direction == "pull":
+        return pull(dist, frontier)
+    rows_push = frontier_rows_should_push(frontier, n, threshold_frac)
+    return _cond_by_rows(
+        rows_push,
+        lambda d: push(d, frontier),
+        lambda d: pull(d, frontier),
+        lambda d: pull(push(d, frontier & rows_push[:, None]),
+                       frontier & ~rows_push[:, None]),
+        dist)
+
+
+# --- BFS (iterateInBFS construct) ----------------------------------------------
+
+def bfs_levels_batch(g: CSRGraph, roots: torch.Tensor,
+                     threshold_frac: float | None = None,
+                     direction: str = "auto"):
+    """Batched level-synchronous BFS from roots[B] with per-row direction
+    optimization. Dense frontier: level[v] = -1 until visited; frontier =
+    (level == cur).
+
+      push (small frontier): mark the out-neighbours of frontier vertices
+      pull (large frontier): segment-or over in-edges from frontier sources
+
+    Both mark exactly the unseen out-neighbourhood of the frontier, so the
+    switch is result-invariant. The reference's `while_loop` is a host
+    `while` that reads one device flag per level (and, under "auto", the
+    rows' directions). Returns (level int32[B, N], depth): row b is the BFS
+    from roots[b]; depth (a Python int) is the deepest row's count, so
+    shallower rows see empty frontiers at the tail levels."""
+    n = g.num_nodes
+    b = roots.shape[0]
+    lanes = torch.arange(b, device=g.device)
+    level = torch.full((b, n), -1, dtype=torch.int32, device=g.device)
+    level[lanes, roots.long()] = 0
+
+    def push(fr):
+        return scatter_or_rows(torch.zeros((b, n), dtype=torch.bool, device=g.device),
+                               g.indices, fr[:, g.edge_src])
+
+    def pull(fr):
+        return segment_max_batch(fr[:, g.rev_indices].to(torch.int32),
+                                 g.rev_edge_dst, n) > 0
+
+    cur, changed = 0, True
+    while changed:
+        frontier = level == cur
+        if direction == "push":
+            reach = push(frontier)
+        elif direction == "pull":
+            reach = pull(frontier)
+        else:
+            rows_push = frontier_rows_should_push(frontier, n, threshold_frac)
+            reach = _cond_by_rows(
+                rows_push, push, pull,
+                lambda fr: push(fr & rows_push[:, None]) | pull(fr & ~rows_push[:, None]),
+                frontier)
+        newly = reach & (level < 0)
+        level = torch.where(newly, cur + 1, level)
+        cur += 1
+        changed = bool(torch.any(newly))
+    bfs_levels_batch.calls += 1
+    bfs_levels_batch.levels += cur
+    return level, cur
+
+
+# BFS calls and expansions (levels) in this process, single-source ones
+# included; a run's levels per BFS is their ratio
+bfs_levels_batch.calls = 0
+bfs_levels_batch.levels = 0
+
+
+def bfs_levels(g: CSRGraph, root, *, threshold_frac: float | None = None,
+               direction: str = "auto"):
+    """Level-synchronous BFS from one root: `bfs_levels_batch` with one row
+    (its per-row push/pull choice is the single-frontier one). Returns
+    (level int32[N], depth), depth a Python int: the number of
+    expansions, one more than the deepest level."""
+    roots = torch.as_tensor(root, device=g.device).reshape(1)
+    level, depth = bfs_levels_batch(g, roots, threshold_frac, direction)
+    return level[0], depth
+
+
+# --- multi-source queries -----------------------------------------------------
+
+def sssp_multi(g: CSRGraph, sources, threshold_frac: float | None = None,
+               direction: str = "auto", priority: str = "none",
+               delta_bucket: int = 64) -> torch.Tensor:
+    """Multi-query SSSP: one batched fixed point answering B source queries
+    per sweep. Returns dist int32[B, N]; row b == SSSP from sources[b]. A
+    host `while` reads one device flag per sweep."""
+    if priority == "delta":
+        raise NotImplementedError(
+            'sssp_multi(priority="delta") is not ported to repro_torch yet '
+            "(ROADMAP.md queue 1, item 7)")
+    n = g.num_nodes
+    sources = torch.as_tensor(sources, device=g.device).long()
+    b = sources.shape[0]
+    lanes = torch.arange(b, device=g.device)
+    dist = torch.full((b, n), INF, dtype=torch.int32, device=g.device)
+    dist[lanes, sources] = 0
+    fr = torch.zeros((b, n), dtype=torch.bool, device=g.device)
+    fr[lanes, sources] = True
+    while bool(torch.any(fr)):
+        d2 = relax_minplus_hybrid_batch(g, dist, fr, threshold_frac, direction)
+        fr = d2 < dist
+        dist = d2
+    return dist
+
+
+def ppr_multi(g: CSRGraph, sources, delta: float = 0.85,
+              beta: float = 1e-4, max_iter: int = 100) -> torch.Tensor:
+    """Multi-query personalized PageRank: one batched sweep serving B
+    personalization vectors. Returns float32[B, N]; row b is the PPR with
+    the restart vector on sources[b], the per-source do-while ppr.sp
+    lowers to: lanes converge independently (per-lane L1 diff vs `beta`)
+    and converged lanes are frozen while the rest sweep."""
+    n = g.num_nodes
+    sources = torch.as_tensor(sources, device=g.device).long()
+    b = sources.shape[0]
+    lanes = torch.arange(b, device=g.device)
+    restart = torch.zeros((b, n), dtype=torch.float32, device=g.device)
+    restart[lanes, sources] = 1.0
+    inv_deg = 1.0 / torch.clamp(g.out_degree, min=1).to(torch.float32)
+    rank = restart
+    act = torch.ones((b,), dtype=torch.bool, device=g.device)
+    it = 0
+    while bool(torch.any(act)):
+        contrib = (rank * inv_deg[None, :])[:, g.rev_indices]     # [B, E]
+        pulled = segment_sum_batch(contrib, g.rev_edge_dst, n)
+        del contrib
+        nxt = (1.0 - delta) * restart + delta * pulled
+        diff = torch.sum(torch.abs(nxt - rank), dim=1)
+        rank = torch.where(act[:, None], nxt, rank)
+        act = act & (diff > beta) & (it + 1 < max_iter)
+        it += 1
+    return rank
+
+
+# --- triangle counting (the paper's Fig. 20 wedge pattern) ----------------------
+
+WEDGE_BUDGET_BYTES = 1 << 30
+_WEDGE_CELL_BYTES = 24    # live bytes per (v, u, w) cell: int32 query,
+#                           int64 position, int32 key, bool masks
+
+
+def wedge_count(g: CSRGraph, chunk: int = 512,
+                budget_bytes: int = WEDGE_BUDGET_BYTES) -> torch.Tensor:
+    """Vectorized node-iterator TC: for v, u in N(v) with u<v, w in N(v) with
+    w>v, count (u, w) ∈ E. Wedges are enumerated on padded [C, D, D] blocks
+    of C vertices. Where the reference pads every row to the graph's
+    max_out_degree in chunks of `chunk` rows, the vertices here go in
+    ascending out-degree order (those of degree < 2 have no wedge), each
+    chunk is padded to its own largest degree D, and C ≤ `chunk` shrinks
+    until the block fits `budget_bytes`: the count does not depend on
+    either. Returns an int32 count; `wedge_count.last` holds the last
+    call's largest D, its C there and the number of chunks."""
+    n = g.num_nodes
+    dev = g.device
+    if g.num_edges == 0:
+        return torch.zeros((), dtype=torch.int32, device=dev)
+    deg = g.out_degree.cpu().numpy()
+    order = np.argsort(deg, kind="stable")
+    order = order[deg[order] >= 2]
+    deg_sorted = deg[order]
+    order_t = torch.from_numpy(order.astype(np.int64)).to(dev)
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    start, chunks, top = 0, 0, (0, 0)
+    while start < order.shape[0]:
+        c = min(chunk, order.shape[0] - start)
+        while c > 1 and c * int(deg_sorted[start + c - 1]) ** 2 * _WEDGE_CELL_BYTES \
+                > budget_bytes:
+            c //= 2
+        d = int(deg_sorted[start + c - 1])
+        vs = order_t[start:start + c]
+        ar = torch.arange(d, device=dev)
+        offs = g.indptr[vs].long()[:, None] + ar[None, :]
+        valid = ar[None, :] < g.out_degree[vs][:, None]
+        cols = torch.where(valid, g.indices[torch.clamp(offs, 0, g.num_edges - 1)], n)
+        vv = vs[:, None, None]
+        u = cols[:, :, None]                      # [C, D, 1]
+        w = cols[:, None, :]                      # [C, 1, D]
+        mask = (valid[:, :, None] & valid[:, None, :] & (u < vv) & (w > vv))
+        total += torch.sum(mask & is_an_edge(g, u, w))
+        top = max(top, (d, c))
+        start += c
+        chunks += 1
+    out = total.to(torch.int32)
+    wedge_count.last = dict(max_degree=top[0], chunk_at_max_degree=top[1], chunks=chunks,
+                            vertices=int(order.shape[0]))
+    return out
+
+
+wedge_count.last = None
+
+
 # --- property helpers ------------------------------------------------------------
 
 def init_prop(n, dtype, value=None, *, device):
@@ -184,6 +543,14 @@ def set_at(prop: torch.Tensor, idx, value) -> torch.Tensor:
     out = prop.clone()
     out[idx] = value
     return out
+
+
+def init_prop_batch(b, n, dtype, value=None, *, device):
+    """[B, N] per-source property block (batched set-loop chunk). `value`
+    may be a scalar or an [N] vector (broadcast across the batch rows)."""
+    if value is None:
+        return torch.zeros((b, n), dtype=dtype, device=device)
+    return torch.as_tensor(value, dtype=dtype, device=device).expand(b, n).clone()
 
 
 def inf_for(dtype):

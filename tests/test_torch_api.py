@@ -127,13 +127,15 @@ def test_compile_and_bind_caches(graphs):
 
 
 @pytest.mark.parametrize("name,kw", [
-    ("bc", {}),
-    ("tc", {}),
+    ("cc", dict(schedule=Schedule(priority="delta"))),
+    ("lp", dict(schedule=Schedule(priority="delta", delta_bucket=8))),
     ("sssp", dict(schedule=Schedule(priority="delta"))),
 ])
 @pytest.mark.parametrize("backend", ["local", "cuda"])
 def test_later_slices_raise_not_implemented(name, kw, backend):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+    # delta-stepping is queue 1, item 7; every bundled program compiles
+    # under the default schedule (tests/test_torch_programs.py)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7"):
         tc.compile_bundled(name, backend=backend, **kw)
 
 

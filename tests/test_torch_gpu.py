@@ -235,6 +235,43 @@ def test_cuda_backend_matches_local_on_the_card(cuda, name):
         assert ops.relax_minplus.push_steps == 0 and ops.relax_minplus.pull_steps > 0
 
 
+@pytest.mark.gpu
+def test_sequential_ppr_launches_the_sweep(cuda):
+    """Sequential ppr (batch_sources=1) gathers through `ell_sweep`, as
+    the reference's sequential ppr gathers through its Pallas kernel."""
+    g = preferential_attachment(600, m=6, seed=11, device=cuda)
+    params = dict(beta=1e-4, delta=0.85, maxIter=60, sourceSet=[0, 7, 23])
+    sched = Schedule(batch_sources=1)
+    ell_sweep.launches = 0
+    got = compile_bundled("ppr", backend="cuda", schedule=sched).bind(g)(**params)
+    assert ell_sweep.launches > 0
+    want = compile_bundled("ppr", backend="local", schedule=sched).bind(g)(**params)
+    torch.testing.assert_close(got["ppr"], want["ppr"], rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch_sources", [1, 32])
+@pytest.mark.parametrize("name", ["bc", "ppr", "tc", "cc", "lp", "kcore"])
+def test_programs_on_the_card_match_the_cpu(cuda, name, batch_sources):
+    """The batched engine and the wedge count run plain torch on the card:
+    both backends there against the `local` backend on the CPU."""
+    params = {"bc": dict(sourceSet=[0, 7, 23, 99, 250]),
+              "ppr": dict(beta=1e-4, delta=0.85, maxIter=60, sourceSet=[0, 7, 23, 99, 250]),
+              "kcore": dict(k=3)}.get(name, {})
+    sched = Schedule(batch_sources=batch_sources)
+    want = compile_bundled(name, backend="local", schedule=sched).bind(
+        preferential_attachment(600, m=6, seed=11, device="cpu"))(**params)
+    g = preferential_attachment(600, m=6, seed=11, device=cuda)
+    for backend in ("local", "cuda"):
+        got = compile_bundled(name, backend=backend, schedule=sched).bind(g)(**params)
+        for key in want:
+            a, b = want[key], got[key].cpu()
+            if a.dtype.is_floating_point:
+                torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-6, equal_nan=True)
+            else:
+                assert torch.equal(b, a), (backend, key)
+
+
 # --- flash_attention ----------------------------------------------------------
 
 def qkv(bh, sq, skv, d, dtype, device, seed=0):

@@ -42,9 +42,12 @@ def test_cpu_rehearsal_checks_every_run_and_is_not_a_smoke_run(no_card):
     assert '"ok"' not in r.stdout and '"kernels"' not in r.stdout
     runs = [json.loads(line) for line in r.stdout.splitlines()
             if line.startswith('  {"program"')]
+    programs = ("sssp", "sssp_pull", "pr", "bc", "ppr", "cc", "lp", "kcore")
     assert {(i["program"], i["backend"]) for i in runs} == {
-        (p, b) for p in ("sssp", "sssp_pull", "pr") for b in ("cuda", "local")}
-    assert all(i["launches"] == 0 for i in runs)   # the CPU never counts a launch
+        (p, b) for p in programs for b in ("cuda", "local")}
+    assert all(i["launches"] == i["sweep_launches"] == 0 for i in runs)   # the CPU never
+    #                                                                     counts a launch
+    assert "[oracles]" in r.stdout and '{"call": "dsl tc"' in r.stdout
 
 
 def load_smoke():
