@@ -97,17 +97,64 @@ Phases, each printed with its own seconds; any failure exits non-zero:
                with the wedge blocks' largest degree D, their chunk C and
                the second call's seconds.
 
+Phases 11 to 14, the serving path, run right after phase 7, on the same
+graph (before the LM phases free it):
+
+ 11. delta   — sssp on `cuda` under the default schedule and under
+               Schedule(priority="delta") with delta_bucket 64 and 16
+               (drive's counters: trips, sweeps, seconds of the second
+               call); dist equal the default's and Dijkstra's, each run
+               must launch `ell_sweep`; `local` delta sssp on the card (the
+               compact `_dell` relax or its dense fallback) equals `cuda`;
+               cc under delta equals cc under the default (its keys are
+               vertex ids: its bucket is N / 64, so 64 buckets);
+ 12. serve   — GraphService(ServiceConfig(backend="cuda", max_wait_ms=5))
+               with register_graph over the four built-in kinds; one burst
+               under one asyncio.gather: 64 sssp and 32 bfs queries from
+               sources drawn with --seed (out-degree > 0), 32 ppr, one bc
+               over 8 of them, printing queries/s, p50 and p99 latency per
+               kind and the service's stats; then a lone sssp query (must
+               launch `ell_sweep`) and one coalesced sssp sweep of B = 32
+               through the kind's runner, timed with its peak memory above
+               held. Checks: sampled sssp rows == the bound cuda program,
+               one == Dijkstra; bfs rows == rt.bfs_levels; ppr rows ==
+               rt.ppr_multi (and two == the local ppr program) at rtol 1e-4,
+               atol 1e-9; the bc row == the bound bc (nan positions
+               compared);
+ 13. update  — one write batch through service.update_graph: 4,096 added
+               edges (weights uniform in [1, 100], 1,024 of them aimed at
+               rows of in-degree 0 and at rows at their bucket's width) and
+               4,096 deleted existing edges, drawn with --seed. The new
+               context's reverse view must be patched (same widths and
+               bucket shapes, hub rows sorted), encode a rebuilt view's
+               edges (sorted (row, col, weight) keys on the card) and run
+               `ell_sweep` == `ell_sweep_ref` for both semirings; a lone
+               sssp query equals Dijkstra on the new graph; refresh of sssp
+               and pr (Schedule(refresh_threshold_frac=1.0), so the warm
+               path runs) equals a cold call (sssp equal, pr at rtol 1e-4).
+               Prints the update's seconds (host apply, patch, first plan)
+               and each refresh's seconds beside the cold call's;
+ 14. tune    — autotune(compile_bundled("sssp", backend="cuda"), rmat(16),
+               budget=4) into a TuningStore in a temporary file; a second
+               GraphService with that store registers the graph: `sssp`
+               must be listed as tuned and answer as the default does.
+
+With --trace, phase 12 also traces one lone sssp query and one coalesced
+sweep (B = 32), and phase 13 one sssp refresh, in phase 7's format.
+
 The line before the last is {"kernels": [...]} (ell_spmv's two semirings,
-reported by the sweep that the main path runs, flash_attention.bf16 and
-tc_matmul.f32); the last line is {"ok": true,
+reported by the sweep that the main path runs, with the launches of
+phases 5, 11, 12 and 13, flash_attention.bf16 and tc_matmul.f32); the last line is {"ok": true,
 "device": {...}}. Without a CUDA device the run fails; a `--device cpu`
-rehearsal runs phases 3, 5, 6 and 8 to 10 with the plain versions at smoke
-sizes (the LM's smoke config, a 256-token prefill, RMAT 8 for every
-graph), prints no result line and exits 3: it is not a smoke run.
+rehearsal runs phases 3, 5, 6 and 8 to 14 with the plain versions at smoke
+sizes (the LM's smoke config, a 256-token prefill, RMAT --scale for the
+graph phases, RMAT 8 for tc), prints no result line and exits 3: it is
+not a smoke run.
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
 import json
 import os
 import re
@@ -495,9 +542,12 @@ def drive(g, backend, name, run, params, on_card, knobs=None):
     return bound, out, info
 
 
-def trace_run(fn, top=12):
+def trace_run(fn, top=12, attempts=2):
     """One more call of `fn` under torch.profiler: device time by kernel and
-    the device-busy share of the call's wall time."""
+    the device-busy share of the call's wall time. A window in which the
+    profiler recorded no device time at all is profiled once more (it
+    happened once in a long run, on calls it had traced before); a second
+    empty window fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -521,6 +571,9 @@ def trace_run(fn, top=12):
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
     if busy_s == 0:
+        if attempts > 1:
+            print("  torch.profiler recorded no device time; profiling the call once more")
+            return trace_run(fn, top, attempts - 1)
         fail("torch.profiler recorded no device time")
     return dict(traced_ms=traced_s * 1e3, device_busy_ms=busy_s * 1e3,
                 idle_share=1 - busy_s / traced_s,
@@ -576,6 +629,7 @@ def check_results(g, results, t0):
             print(f"  {name}/{direction}: dist == Dijkstra "
                   f"({int(np.sum(dist < 2**30))} reachable)")
     phase("check", t0, "cuda == local, dist == Dijkstra, pageRank == float64 iteration")
+    return dist_ref
 
 
 def compare_outputs(got, want, what):
@@ -767,6 +821,414 @@ def oracle_phase(scale, seed, dev):
     del g, gs
     if dev == "cuda":
         torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+# the serving path: delta-stepping, GraphService, a write batch, the tuner
+# --------------------------------------------------------------------------
+
+DELTA_RUNS = (("default", {}), ("delta64", dict(priority="delta")),
+              ("delta16", dict(priority="delta", delta_bucket=16)))
+CC_BUCKETS = 64         # cc under delta: buckets over its label range [0, N)
+BURST = dict(sssp=64, bfs=32, ppr=32)    # and one bc query over 8 sources
+BC_SOURCES = 8
+WRITES = 4096           # added edges, and as many deleted existing ones
+AIMED = 1024            # of the adds: at in-degree-0 rows and rows at their width
+REFRESH_PR = dict(beta=1e-7, delta=0.85, maxIter=300)
+
+
+def sync(on_card):
+    if on_card:
+        import torch
+        torch.cuda.synchronize()
+
+
+def delta_phase(g, on_card, dist_ref):
+    """sssp on `cuda` under the default schedule and under delta-stepping
+    (Δ = 64 and 16): dist equal the default's and Dijkstra's, every cuda
+    run launches `ell_sweep`; `local` delta on the card (the compact
+    `_dell` relax or its dense fallback) equals `cuda`; cc under delta
+    (a bucket of N / CC_BUCKETS) equals cc under the default. Returns the
+    delta runs' infos."""
+    import torch
+    from repro_torch.core import get_context
+    infos, dists = [], {}
+    for label, knobs in DELTA_RUNS:
+        _, out, info = drive(g, "cuda", "sssp", label, dict(src=0), on_card, knobs)
+        dists[label] = out["dist"]
+        if on_card and info["sweep_launches"] == 0:
+            fail(f"sssp/{label}: launched no ell_sweep kernel")
+        infos.append(info)
+        print("  " + json.dumps(info))
+    for label, _ in DELTA_RUNS[1:]:
+        if not torch.equal(dists[label], dists["default"]):
+            fail(f"sssp/{label}: dist differs from the default schedule's")
+    if not np.array_equal(dists["delta16"].cpu().numpy().astype(np.int64), dist_ref):
+        fail("sssp/delta16: dist differs from Dijkstra")
+    _, out, info = drive(g, "local", "sssp", "delta64", dict(src=0), on_card,
+                         dict(priority="delta"))
+    info["compact_view"] = get_context(g).delta_ell() is not None
+    print("  " + json.dumps(info))
+    if not torch.equal(out["dist"], dists["delta64"]):
+        fail("sssp/delta64: local differs from cuda on the card")
+    # cc's keys are vertex ids: a bucket of 64 makes N / 64 buckets (65,536
+    # on RMAT 22: 339 s per call on the card), N / CC_BUCKETS makes 64
+    _, cc, _ = drive(g, "cuda", "cc", "default", {}, on_card, {})
+    bucket = max(g.num_nodes // CC_BUCKETS, 1)
+    _, ccd, info = drive(g, "cuda", "cc", f"delta{bucket}", {}, on_card,
+                         dict(priority="delta", delta_bucket=bucket))
+    print("  " + json.dumps(info))
+    if not torch.equal(cc["comp"], ccd["comp"]):
+        fail(f"cc/delta{bucket}: comp differs from the default schedule's")
+    return infos
+
+
+async def serve_burst(service, name, srcs, seed):
+    """One burst under one asyncio.gather: sssp from every source in
+    `srcs`, bfs from the first BURST["bfs"], ppr from the last
+    BURST["ppr"], one bc over the first BC_SOURCES. Returns the answers
+    keyed by (kind, source) and the per-kind latencies."""
+    async def timed(kind, key, **params):
+        t = time.perf_counter()
+        out = await service.query(name, kind, timeout=None, **params)
+        return kind, key, out, time.perf_counter() - t
+
+    jobs = [timed("sssp", int(s), src=int(s)) for s in srcs[:BURST["sssp"]]]
+    jobs += [timed("bfs", int(s), src=int(s)) for s in srcs[:BURST["bfs"]]]
+    jobs += [timed("ppr", int(s), src=int(s)) for s in srcs[-BURST["ppr"]:]]
+    jobs.append(timed("bc", None, sourceSet=srcs[:BC_SOURCES]))
+    t = time.perf_counter()
+    res = await asyncio.gather(*jobs)
+    wall = time.perf_counter() - t
+    answers = {(kind, key): out for kind, key, out, _ in res}
+    lat = {}
+    for kind, _, _, secs in res:
+        lat.setdefault(kind, []).append(secs)
+    return answers, lat, wall
+
+
+def check_burst(g, answers, srcs, on_card):
+    """The burst's answers against the bound programs and the oracles."""
+    import torch
+    from repro_torch.core import compile_bundled
+    from repro_torch.core import runtime as rt
+    sssp = compile_bundled("sssp", backend="cuda").bind(g)
+    picks = srcs[:BURST["sssp"]][::21]
+    for s in picks:
+        if not np.array_equal(answers[("sssp", int(s))], sssp(src=int(s))["dist"].cpu().numpy()):
+            fail(f"serve: sssp from {s} differs from the bound cuda program")
+    if not np.array_equal(answers[("sssp", int(srcs[0]))].astype(np.int64),
+                          dijkstra_ref(g, int(srcs[0]))):
+        fail(f"serve: sssp from {srcs[0]} differs from Dijkstra")
+    for s in srcs[:BURST["bfs"]]:
+        if not np.array_equal(answers[("bfs", int(s))],
+                              rt.bfs_levels(g, int(s))[0].cpu().numpy()):
+            fail(f"serve: bfs from {s} differs from rt.bfs_levels")
+    ppr_srcs = srcs[-BURST["ppr"]:]
+    want = rt.ppr_multi(g, torch.as_tensor(ppr_srcs, device=g.device)).cpu().numpy()
+    local = compile_bundled("ppr", backend="local").bind(g)
+    got_all = np.stack([answers[("ppr", int(s))] for s in ppr_srcs])
+    over = np.abs(got_all - want) - 1e-9
+    print(f"  serve: ppr rows vs rt.ppr_multi: max abs diff {np.abs(got_all - want).max()!r}, "
+          f"largest diff beyond atol as a share of |want| "
+          f"{float(np.max(np.where(over > 0, over / np.maximum(np.abs(want), 1e-30), 0.0)))!r} "
+          f"(rtol 1e-4)")
+    for i, s in enumerate(ppr_srcs):
+        got = answers[("ppr", int(s))]
+        np.testing.assert_allclose(got, want[i], rtol=1e-4, atol=1e-9,
+                                   err_msg=f"serve: ppr from {s} vs rt.ppr_multi")
+        if i < 2:
+            one = local(beta=1e-4, delta=0.85, maxIter=100, sourceSet=[int(s)])["ppr"]
+            np.testing.assert_allclose(got, one.cpu().numpy(), rtol=1e-4, atol=1e-9,
+                                       err_msg=f"serve: ppr from {s} vs local ppr")
+    bc = compile_bundled("bc", backend="cuda").bind(g)(sourceSet=srcs[:BC_SOURCES])
+    compare_outputs({"BC": torch.from_numpy(answers[("bc", None)]).to(g.device)},
+                    bc, "serve: bc vs the bound bc")
+    print(f"  serve checks: sssp rows {picks.tolist()} == bound cuda sssp, "
+          f"{srcs[0]} == Dijkstra; {BURST['bfs']} bfs rows == rt.bfs_levels; "
+          f"{BURST['ppr']} ppr rows == rt.ppr_multi (2 == local ppr); bc == bound bc")
+
+
+def write_batch(g, ell, seed):
+    """WRITES added edges (weights uniform in [1, 100]), AIMED of them at
+    rows of in-degree 0 and at rows whose in-degree equals their bucket's
+    width, half each (so both migrate into the hub tail), and WRITES
+    deleted existing edges, drawn with `seed`. A graph of fewer than
+    2·WRITES edges (a rehearsal) gets E / 2 of each, and fewer aimed adds
+    where it has fewer such rows."""
+    rng = np.random.default_rng(seed + 1)
+    n = g.num_nodes
+    writes = min(WRITES, g.num_edges // 2)
+    in_deg = g.in_degree.cpu().numpy()
+    empty = np.flatnonzero(in_deg == 0)
+    full = np.flatnonzero(np.isin(in_deg, np.asarray(ell.widths)))
+    aimed = [rng.choice(rows, min(AIMED * writes // WRITES // 2, rows.size), replace=False)
+             for rows in (empty, full)]
+    dst = np.concatenate(aimed + [rng.integers(0, n, writes - sum(a.size for a in aimed))])
+    adds = np.stack([rng.integers(0, n, writes), dst], 1)
+    idx = rng.choice(g.num_edges, writes, replace=False)
+    dels = np.stack([g.edge_src.cpu().numpy()[idx], g.indices.cpu().numpy()[idx]], 1)
+    return adds, dels, rng.integers(1, 101, writes)
+
+
+def view_edge_keys(view):
+    """The (row, col, weight) multiset of a sliced view as sorted int64
+    keys, on the view's device ((row·N + col)·128 + weight; weights < 128)."""
+    import torch
+    n = view.num_nodes
+    parts = []
+    for cols, wts, rows in zip(view.cols, view.wts, view.rows):
+        real = (rows < n)[:, None] & (cols < n)
+        r = rows[:, None].expand_as(cols)[real].long()
+        parts.append((r * n + cols[real].long()) * 128 + wts[real].long())
+    parts.append((view.hub_rows.long() * n + view.hub_cols.long()) * 128 + view.hub_wts.long())
+    return torch.sort(torch.cat(parts)).values
+
+
+class Timers:
+    """Host seconds spent in module functions, each call ending in a
+    synchronize: wraps `module.attr` while the `with` block runs."""
+
+    def __init__(self, on_card, **targets):
+        self.on_card, self.targets, self.seconds = on_card, targets, {}
+
+    def __enter__(self):
+        self.saved = {}
+        for label, (module, attr) in self.targets.items():
+            fn = getattr(module, attr)
+            self.saved[label] = (module, attr, fn)
+
+            def timed(*a, _fn=fn, _label=label, **kw):
+                t = time.perf_counter()
+                out = _fn(*a, **kw)
+                sync(self.on_card)
+                self.seconds[_label] = self.seconds.get(_label, 0.0) + time.perf_counter() - t
+                return out
+            setattr(module, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, fn in self.saved.values():
+            setattr(module, attr, fn)
+
+
+async def update_phase(service, name, g, seed, on_card, trace):
+    """One write batch through `service.update_graph`: the new context's
+    reverse view was patched (same widths and bucket shapes, hub rows
+    sorted), encodes the rebuilt view's edges and runs `ell_sweep` equal
+    to `ell_sweep_ref`; a lone sssp query equals Dijkstra on the new
+    graph; refresh of sssp and pr equals a cold call. Returns the
+    `ell_sweep` launches of the lone query and the refreshes, by semiring."""
+    import torch
+    from repro_torch.core import Schedule, compile_bundled, context, get_context
+    from repro_torch.graph import dynamic, to_sliced_ell
+    from repro_torch.kernels.ell_spmv import plan as plan_mod
+    from repro_torch.kernels.ell_spmv.kernel import ell_sweep
+    from repro_torch.kernels.ell_spmv.ref import ell_sweep_ref
+    old_view = get_context(g).sliced_ell(None, reverse=True)
+    adds, dels, wts = write_batch(g, old_view, seed)
+    s = int(pick_sources(g, 1, seed + 2)[0])
+    refresh = Schedule(refresh_threshold_frac=1.0)
+    progs = {"sssp": (compile_bundled("sssp", backend="cuda", schedule=refresh), dict(src=s)),
+             "pr": (compile_bundled("pr", backend="cuda", schedule=refresh), REFRESH_PR)}
+    prev = {k: p.bind(g)(**params) for k, (p, params) in progs.items()}
+    sync(on_card)
+    with Timers(on_card, apply=(dynamic, "apply_update"),
+                patch=(context, "adopt_patched_views"),
+                plan=(plan_mod, "build_sweep_plan")) as tm:
+        t = time.perf_counter()
+        delta = await service.update_graph(name, adds=adds, dels=dels, weights=wts)
+        sync(on_card)
+        total = time.perf_counter() - t
+    new = delta.graph
+    view = get_context(new).sliced_ell(None, reverse=True)
+    if view.widths != old_view.widths or \
+            [tuple(c.shape) for c in view.cols] != [tuple(c.shape) for c in old_view.cols]:
+        fail("update: the new context's reverse view was rebuilt, not patched")
+    if not bool((view.hub_rows[1:] >= view.hub_rows[:-1]).all()):
+        fail("update: the patched hub tail is not sorted by row")
+    fresh = to_sliced_ell(new, reverse=True)
+    if not torch.equal(view_edge_keys(view), view_edge_keys(fresh)):
+        fail("update: the patched view's edges differ from a rebuilt view's")
+    pads = lambda v: sum(int((r == v.num_nodes).sum()) for r in v.rows)  # noqa: E731
+    plan = get_context(new).sweep_plan(None)
+    rng = np.random.default_rng(seed)
+    dist = torch.from_numpy(rng.integers(0, 1000, new.num_nodes).astype(np.int32)).to(new.device)
+    x = torch.from_numpy(rng.random(new.num_nodes).astype(np.float32)).to(new.device)
+    if on_card:
+        got = ell_sweep(view, plan, dist, semiring="minplus", dist=dist)
+        if not torch.equal(got, ell_sweep_ref(view, plan, dist, "minplus", dist)):
+            fail("update: min-plus ell_sweep on the patched view differs from ell_sweep_ref")
+        torch.testing.assert_close(ell_sweep(view, plan, x, semiring="plustimes"),
+                                   ell_sweep_ref(view, plan, x, "plustimes"),
+                                   rtol=1e-5, atol=1e-6)
+    print("  " + json.dumps(dict(
+        added=delta.num_added, removed=delta.num_removed, version=new.version,
+        E=new.num_edges, update_s=total, host_apply_s=tm.seconds["apply"] - tm.seconds["patch"],
+        patch_s=tm.seconds["patch"], first_plan_s=tm.seconds.get("plan", 0.0),
+        hub_edges=[int(old_view.hub_rows.shape[0]), int(view.hub_rows.shape[0])],
+        padding_rows=[pads(old_view), pads(view)])))
+    ell_sweep.launches = 0
+    lone = await service.query(name, "sssp", src=s, timeout=None)
+    lone_launches = ell_sweep.launches
+    if not np.array_equal(lone.astype(np.int64), dijkstra_ref(new, s)):
+        fail("update: the lone sssp query differs from Dijkstra on the updated graph")
+    t = time.perf_counter()
+    seeding = delta.plan()
+    plan_s = time.perf_counter() - t
+    launches, rows = {"minplus": lone_launches, "plustimes": 0}, []
+    for key, (prog, params) in progs.items():
+        bound = prog.bind(new)
+        bound(**params)                             # warm
+        sync(on_card)
+        ell_sweep.launches = 0
+        t = time.perf_counter()
+        warm = bound.refresh(prev[key], delta, **params)
+        sync(on_card)
+        refresh_s, refreshed = time.perf_counter() - t, ell_sweep.launches
+        launches["minplus" if key == "sssp" else "plustimes"] += refreshed
+        t = time.perf_counter()
+        cold = bound(**params)
+        sync(on_card)
+        cold_s = time.perf_counter() - t
+        if key == "sssp":
+            if not torch.equal(warm["dist"], cold["dist"]):
+                fail("update: refreshed sssp differs from a cold call")
+        else:
+            torch.testing.assert_close(warm["pageRank"], cold["pageRank"], rtol=1e-4, atol=0)
+        if on_card and refreshed == 0:
+            fail(f"update: {key} refresh launched no ell_sweep kernel")
+        rows.append(dict(refresh=key, refresh_s=refresh_s, cold_s=cold_s, sweep_launches=refreshed,
+                         **({"iterations": [int(warm["iterCount"]), int(cold["iterCount"])]}
+                            if key == "pr" else {})))
+    print("  " + json.dumps(dict(plan_s=plan_s, affected_frac=seeding.affected_frac,
+                                 cone=seeding.cone_size, lone_query_sweeps=lone_launches)))
+    for row in rows:
+        print("  " + json.dumps(row))
+    if trace:
+        prog, params = progs["sssp"]
+        bound = prog.bind(new)
+        tr = trace_run(lambda: bound.refresh(prev["sssp"], delta, **params))
+        tr.pop("kernels")
+        print("  " + json.dumps(dict(run="sssp refresh", untraced_ms=rows[0]["refresh_s"] * 1e3,
+                                     **tr)))
+    return launches
+
+
+async def serving_phase(g, seed, on_card, trace):
+    """Phases `serve` and `update`: GraphService(backend="cuda") over the
+    graph, one burst, a lone query, one coalesced sssp sweep measured on
+    its own, the checks, then a write batch. Returns the `ell_sweep`
+    launches of the lone queries and the refreshes, by semiring."""
+    import torch
+    from repro_torch.kernels.ell_spmv.kernel import ell_sweep
+    from repro_torch.serve import BUILTIN_KINDS, GraphService, ServiceConfig
+    name = "rmat22"
+    srcs = pick_sources(g, BURST["sssp"], seed)
+    print(f"  sources (seed {seed}): {srcs.tolist()}")
+    t0 = time.perf_counter()
+    async with GraphService(ServiceConfig(backend="cuda", max_wait_ms=5.0)) as svc:
+        t = time.perf_counter()
+        handle = svc.register_graph(name, g)
+        register_s = time.perf_counter() - t
+        answers, lat, wall = await serve_burst(svc, name, srcs, seed)
+        st = svc.stats()
+        n = sum(len(v) for v in lat.values())
+        row = dict(queries=n, wall_s=wall, queries_per_s=n / wall, register_s=register_s,
+                   sweeps=st["sweeps"], mean_batch=st["mean_batch"], max_batch=st["max_batch"],
+                   served=st["served"], rejected=st["rejected"], timeouts=st["timeouts"])
+        for kind, xs in lat.items():
+            row[f"{kind}_p50_s"], row[f"{kind}_p99_s"] = (float(np.percentile(xs, q))
+                                                          for q in (50, 99))
+        print("  " + json.dumps(row))
+        ell_sweep.launches = 0
+        t = time.perf_counter()
+        lone = await svc.query(name, "sssp", src=int(srcs[1]), timeout=None)
+        lone_s, lone_launches = time.perf_counter() - t, ell_sweep.launches
+        if on_card and lone_launches == 0:
+            fail("serve: the lone sssp query launched no ell_sweep kernel")
+        if not np.array_equal(lone, answers[("sssp", int(srcs[1]))]):
+            fail("serve: the lone sssp query differs from its coalesced answer")
+        # one coalesced sssp sweep (B = 32) on its own: seconds and peak
+        runner = BUILTIN_KINDS[0].make_runner(handle, handle.schedules["sssp"], 32)
+        params = [{"src": int(s)} for s in srcs[:32]]
+        sync(on_card)
+        held = torch.cuda.memory_allocated() if on_card else None
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        rows = runner(params)
+        sync(on_card)
+        sweep_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() - held if on_card else None
+        for s, r in zip(srcs[:32], rows):
+            if not np.array_equal(r, answers[("sssp", int(s))]):
+                fail(f"serve: sssp from {s} differs between two coalesced sweeps")
+        print("  " + json.dumps(dict(lone_sssp_s=lone_s, lone_sssp_sweeps=lone_launches,
+                                     coalesced_sssp_B=32, coalesced_sssp_s=sweep_s,
+                                     coalesced_sssp_peak_above_held_bytes=peak,
+                                     held_bytes=held)))
+        check_burst(g, answers, srcs, on_card)
+        if trace:
+            for label, fn, ms in (("lone sssp query", lambda: runner(params[1:2]), lone_s),
+                                  ("coalesced sssp sweep, B = 32", lambda: runner(params),
+                                   sweep_s)):
+                tr = trace_run(fn)
+                tr.pop("kernels")
+                print("  " + json.dumps(dict(run=label, untraced_ms=ms * 1e3, **tr)))
+        del answers, rows
+        phase("serve", t0, "GraphService(backend='cuda'): burst == bound programs and oracles")
+        t0 = time.perf_counter()
+        launches = await update_phase(svc, name, g, seed, on_card, trace)
+        launches["minplus"] += lone_launches
+        phase("update", t0, "update_graph: patched view == rebuilt, sweep == plain, "
+              "refresh == cold")
+    return launches
+
+
+def tune_phase(scale, seed, dev):
+    """autotune(sssp, cuda) on rmat(scale), saved to a TuningStore in
+    a temporary file; a second GraphService with that store registers the
+    graph: sssp is served under the tuned schedule, with the default
+    schedule's answers."""
+    import tempfile
+    from repro_torch.autotune import TuningStore, autotune, schedule_to_dict
+    from repro_torch.core import Schedule, compile_bundled
+    from repro_torch.graph import rmat
+    from repro_torch.serve import GraphService, ServiceConfig
+    g16 = rmat(scale, edge_factor=16, seed=seed, device=dev)
+    srcs = pick_sources(g16, 4, seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tuning.json")
+        t = time.perf_counter()
+        res = autotune(compile_bundled("sssp", backend="cuda"), g16, budget=4,
+                       store=TuningStore(path))
+        tune_s = time.perf_counter() - t
+        base = schedule_to_dict(Schedule())
+        for i, trial in enumerate(res.record.trials):
+            knobs = {k: v for k, v in trial["schedule"].items() if v != base[k]}
+            print("  " + json.dumps(dict(trial=i, ms=trial["ms"], knobs=knobs)))
+
+        async def serve():
+            async with GraphService(ServiceConfig(backend="cuda"), tune_store=path) as svc:
+                handle = svc.register_graph("rmat16", g16, kinds=["sssp"])
+                outs = await asyncio.gather(*(svc.query("rmat16", "sssp", src=int(s))
+                                              for s in srcs))
+                return handle, outs, await svc.query("rmat16", "sssp", src=int(srcs[0]))
+
+        handle, outs, lone = asyncio.run(serve())
+    if "sssp" not in handle.tuned or handle.schedules["sssp"] != res.schedule:
+        fail(f"tune: the service did not reload the tuned schedule ({handle.tuned})")
+    default = compile_bundled("sssp", backend="cuda").bind(g16)
+    for s, out in zip(srcs, outs):
+        if not np.array_equal(out, default(src=int(s))["dist"].cpu().numpy()):
+            fail(f"tune: sssp from {s} under the tuned schedule differs from the default's")
+    if not np.array_equal(lone, outs[0]):
+        fail("tune: the lone sssp query differs from the coalesced one")
+    print("  " + json.dumps(dict(graph=f"rmat({scale})", N=g16.num_nodes, E=g16.num_edges,
+                                 tune_s=tune_s, best_ms=res.record.best_ms,
+                                 default_ms=res.record.default_ms, tuned=handle.tuned,
+                                 sources=srcs.tolist())))
 
 
 # --------------------------------------------------------------------------
@@ -1212,7 +1674,7 @@ def main(argv=None):
 
     # 6. check
     t0 = time.perf_counter()
-    check_results(g, results, t0)
+    dist_ref = check_results(g, results, t0)
     t0 = time.perf_counter()
     check_set_results(set_results)
     phase("check-programs", t0, "bc, ppr, cc, lp, kcore: cuda == local")
@@ -1247,6 +1709,16 @@ def main(argv=None):
             print("  " + json.dumps(dict(program=name, run=run, untraced_ms=info["seconds"] * 1e3,
                                          **tr)))
         phase("trace", t0, "torch.profiler, one call per cuda run; no scatter in a pull")
+
+    # 11. delta; 12. serve; 13. update; 14. tune
+    t0 = time.perf_counter()
+    delta_infos = delta_phase(g, on_card, dist_ref)
+    phase("delta", t0, "sssp under priority='delta' == default == Dijkstra; local == cuda; "
+          "cc under delta == default")
+    served = asyncio.run(serving_phase(g, args.seed, on_card, on_card and args.trace))
+    t0 = time.perf_counter()
+    tune_phase(16 if on_card else args.scale, args.seed, args.device)
+    phase("tune", t0, "autotune -> TuningStore -> GraphService reloads the tuned schedule")
     del g, ell, results, bounds, set_results
     dev = args.device
 
@@ -1276,7 +1748,8 @@ def main(argv=None):
 
     # the kernels of the path: the whole-view pull sweep of each semiring
     # (the rectangular per-bucket rows stay printed in phase 4), launches
-    # from the main-path runs that use it
+    # from the main-path runs that use it and from the serving path's
+    # (the delta runs, the lone queries, the refreshes)
     kernels = []
     for semiring, cname, progs in (("minplus", "minplus_i32", ("sssp", "sssp_pull")),
                                    ("plustimes", "plustimes_f32", ("pr", "ppr"))):
@@ -1285,7 +1758,8 @@ def main(argv=None):
         kernels.append(dict(
             name=f"ell_spmv.{cname}", route="cuda", source=SOURCE, replaces=REPLACES,
             launches=sum(i["launches"] + i["sweep_launches"] for i in infos + set_infos
-                         if i["backend"] == "cuda" and i["program"] in progs),
+                         + delta_infos if i["backend"] == "cuda" and i["program"] in progs)
+            + served[semiring],
             max_abs_err=max([sw["max_abs_err"]] + [r["max_abs_err"] for r in mine]),
             ms=sw["ms"], plain_ms=sw["plain_ms"], bound_ms=sw["bound_ms"],
             bound_by=sw["bound_by"], library_ms=sw["library_ms"],

@@ -29,7 +29,7 @@ import torch
 from ..graph.csr import resolve_schedule
 from ..schedule import Schedule
 from . import runtime as rt
-from .analysis import (DiagnosticError, check_schedule, entry_error,
+from .analysis import (DiagnosticError, check_schedule, diag, entry_error,
                        program_analysis, split)
 from .context import get_context
 from .lowering import lower
@@ -55,6 +55,11 @@ class CompiledProgram:
     schedule: Schedule   # the schedule baked into `source`
     dsl_source: str = ""  # the StarPlat source this was compiled from
     diagnostics: tuple = ()  # analysis findings that survived the gate
+    # `<name>__refresh` wrapper (same calling convention as `fn`, plus
+    # _warm/_reset/_seed), or None when the program has no top-level
+    # iterative construct to warm-start. Call through
+    # `BoundProgram.refresh`, which derives the seeding from a GraphDelta.
+    refresh_fn: Optional[Callable] = None
 
     def recompile(self, schedule: Schedule) -> "CompiledProgram":
         """The same algorithm under a different schedule — a compile-cache
@@ -97,7 +102,7 @@ class BoundProgram:
 
     Holds the graph strongly and warms the per-graph structures once at
     construction (the cuda backend's reverse sliced-ELL view and its sweep
-    plan), so every
+    plan; a local delta-stepping program's padded forward ELL), so every
     subsequent call is pure execution."""
 
     def __init__(self, program: CompiledProgram, graph):
@@ -106,14 +111,54 @@ class BoundProgram:
         ctx = get_context(graph)
         if program.backend == "cuda":
             ctx.sweep_plan(program.schedule)
+        elif ", _dell" in program.source:
+            ctx.delta_ell()   # warm the delta-stepping compact-relax view
 
     def __call__(self, **params):
         return self.program.fn(self.graph, **params)
 
     def refresh(self, prev: dict, delta, /, **params):
-        raise NotImplementedError(
-            "incremental refresh after g.update() is not ported to "
-            "repro_torch yet (ROADMAP.md queue 1, item 8)")
+        # prev/delta are positional-only: program params are free to reuse
+        # the names (PR's damping factor is literally called `delta`)
+        """Incremental recompute after `g.update()`: the previous result
+        warm-starts the program's iterative construct instead of running it
+        from the cold init.
+
+        `prev` is a prior result dict of the SAME program (on the
+        pre-update graph), `delta` the `GraphDelta` whose `.graph` this
+        program is bound to. The delta's `plan()` supplies the seeding:
+        previous per-node values are kept except in the deletion cone
+        (reset to cold init), and the first sweep's frontier is the
+        update-incident seed set. When the affected fraction of N exceeds
+        `Schedule.refresh_threshold_frac`, this falls back to a plain call
+        — either path returns the converged result a plain call would."""
+        prog = self.program
+        if prog.refresh_fn is None:
+            raise ValueError(
+                f"{prog.name!r} has no incremental refresh: the program "
+                "has no top-level iterative construct (fixedPoint / while "
+                "/ do-while) to warm-start")
+        fx = program_analysis(prog.dsl_source).functions.get(prog.name)
+        if fx is not None and fx.refresh_unsafe:
+            raise DiagnosticError(
+                [diag("SP209", fx.refresh_unsafe_reason, fn=prog.name,
+                      line=fx.refresh_unsafe_line, src=prog.dsl_source)],
+                header=f"refresh rejected for {prog.name!r}")
+        if delta.graph is not self.graph:
+            raise ValueError(
+                "refresh must run on the post-update graph: bind the "
+                "program to delta.graph and pass the matching delta")
+        plan = delta.plan()
+        if plan.affected_frac > prog.schedule.refresh_threshold_frac:
+            return self(**params)
+        n = self.graph.num_nodes
+        warm = {k: v for k, v in prev.items()
+                if getattr(v, "shape", None) == (n,)}
+        dev = self.graph.device
+        return prog.refresh_fn(self.graph, _warm=warm,
+                               _reset=torch.from_numpy(plan.reset).to(dev),
+                               _seed=torch.from_numpy(plan.seed).to(dev),
+                               **params)
 
     def __repr__(self):
         g = self.graph
@@ -178,8 +223,7 @@ def compile_program(source: str, backend: str = "local",
 
     Every compile — cache hits included — passes the static analysis gate
     (`repro_torch.core.analysis`): errors raise `DiagnosticError` with
-    stable SPxxx codes; `strict=True` promotes warnings to errors.
-    Constructs a later slice ports raise `NotImplementedError`."""
+    stable SPxxx codes; `strict=True` promotes warnings to errors."""
     if backend not in _BACKENDS:
         raise entry_error(
             "SP301",
@@ -226,23 +270,38 @@ def compile_program(source: str, backend: str = "local",
         body, extra_env = generate_cuda(irfn, schedule=sched)
 
     src = _PRELUDE + body
-    raw = _exec_generated(src, irfn.name, extra_env)[irfn.name]
+    env = _exec_generated(src, irfn.name, extra_env)
+    raw = env[irfn.name]
+    raw_refresh = env.get(f"{irfn.name}__refresh")
 
     sets = tuple(p.name for p in irfn.params if p.kind == "set_n")
-    if backend == "cuda":
-        def fn(g, *, _raw=raw, _sched=sched, **kw):
-            # degree-bucketed reverse (in-edge) view, owned by the graph's
-            # shared GraphContext — built once per (graph, layout)
-            return _raw(g, get_context(g).sliced_ell(_sched, reverse=True),
-                        **_bind_sets(g, kw, sets))
-    elif sets:
-        def fn(g, *, _raw=raw, **kw):
-            return _raw(g, **_bind_sets(g, kw, sets))
-    else:
-        fn = raw
+    takes_dell = f"def {irfn.name}({irfn.graph_param}, _dell" in body
+
+    def _wrap(raw_fn):
+        if backend == "cuda":
+            def fn(g, *, _raw=raw_fn, _sched=sched, **kw):
+                # degree-bucketed reverse (in-edge) view, owned by the
+                # graph's shared GraphContext — built once per (graph, layout)
+                return _raw(g, get_context(g).sliced_ell(_sched, reverse=True),
+                            **_bind_sets(g, kw, sets))
+            return fn
+        if takes_dell:
+            # delta-stepping program: the padded forward-ELL view the
+            # compact bucket relax gathers frontier out-rows from (None on
+            # hub-heavy graphs → dense fallback)
+            def fn(g, *, _raw=raw_fn, **kw):
+                return _raw(g, get_context(g).delta_ell(), **_bind_sets(g, kw, sets))
+            return fn
+        if sets:
+            def fn(g, *, _raw=raw_fn, **kw):
+                return _raw(g, **_bind_sets(g, kw, sets))
+            return fn
+        return raw_fn
+
     prog = CompiledProgram(
-        name=irfn.name, backend=backend, source=src, fn=fn,
-        ir=irfn, schedule=sched, dsl_source=source, diagnostics=diags)
+        name=irfn.name, backend=backend, source=src, fn=_wrap(raw),
+        ir=irfn, schedule=sched, dsl_source=source, diagnostics=diags,
+        refresh_fn=_wrap(raw_refresh) if raw_refresh is not None else None)
     _COMPILE_CACHE[cache_key] = prog
     if fn_name is None:
         # also file under the resolved name, so an explicit request for the

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 from .. import ir as I
 from .base import HostCtx, VertexCtx
-from .local_torch import LocalCodegen
+from .local_torch import LocalCodegen, has_refresh_variant
 
 
 def _only_reads_side(expr, side: str) -> bool:
@@ -50,6 +50,10 @@ def _only_reads_side(expr, side: str) -> bool:
 
 class CudaCodegen(LocalCodegen):
     backend_name = "cuda"
+    # the kernel op already takes an arbitrary frontier mask, so a delta-
+    # stepping fixedPoint relaxes its bucketed window through the same
+    # sliced-ELL sweep — no separate `_dell` padded view needed
+    supports_delta_ell = False
 
     def _block_rows_literal(self) -> str:
         """`Schedule.block_rows` as a source literal for the kernel ops: an
@@ -74,8 +78,11 @@ class CudaCodegen(LocalCodegen):
     def emit_relax_hybrid(self, s: I.IMinMaxUpdate, frontier,
                           weighted: bool = True):
         """The pattern the local backend detects, lowered to the kernel op.
-        The unweighted relax keeps the inherited plain-torch lowering — the
-        min-plus kernel is weighted."""
+        Under delta-stepping the frontier arriving here is already the
+        bucketed window, so the same call applies unchanged (and a pull
+        trip of it is the one-launch `ell_sweep`). The unweighted relax
+        keeps the inherited plain-torch lowering — the min-plus kernel is
+        weighted."""
         if not weighted:
             return super().emit_relax_hybrid(s, frontier, weighted)
         em = self.em
@@ -109,7 +116,12 @@ class CudaCodegen(LocalCodegen):
 
 
 def generate_cuda(irfn: I.IRFunction, schedule=None):
-    """Emit the cuda-backend source; returns (source, extra exec globals)."""
+    """Emit the cuda-backend source (with its `__refresh` variant when the
+    program has one); returns (source, extra exec globals)."""
     body = CudaCodegen(irfn, schedule=schedule).generate()
+    if has_refresh_variant(irfn):
+        rcg = CudaCodegen(irfn, schedule=schedule)
+        rcg.refresh_variant = True
+        body = body + "\n\n" + rcg.generate()
     from ...kernels.ell_spmv import ops as kops
     return body, {"kops": kops}

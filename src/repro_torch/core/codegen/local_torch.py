@@ -12,11 +12,10 @@ PyTorch runs eagerly, so `fixedPoint`, the `while` / `do-while` loops and
 the set and BFS loops become Python loops: a `while` reads one device
 scalar per trip, a BFS reads its depth once, and the push/pull switch is a
 Python `if` on the frontier's occupancy. Generated code runs on the device
-that holds the graph.
-
-Constructs that later slices port raise `NotImplementedError` naming the
-construct and its ROADMAP item — never `CodegenError`, so a missing port
-is never mistaken for a pattern that falls back to another lowering.
+that holds the graph. Under `Schedule(priority="delta")` a Min-relax
+fixedPoint is bucketed (delta-stepping), and programs with a top-level
+iterative construct also get a `<name>__refresh` variant that warm-starts
+it after `g.update()`.
 """
 from __future__ import annotations
 
@@ -38,15 +37,13 @@ _TORCH_DTYPE = {"int32": "torch.int32", "bool": "torch.bool",
 _RED = {"+": "+", "-": "-", "*": "*", "/": "/", "&&": "&", "||": "|"}
 
 
-def not_ported(construct: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{construct} is not ported to repro_torch yet (ROADMAP.md queue 1, "
-        f"item {item})")
-
-
 class LocalCodegen:
     backend_name = "local"
     VLEN = "N"
+    # takes a `_dell` padded forward-ELL param for the delta-stepping compact
+    # relax (rt.relax_minplus_delta); cuda relaxes through its own sliced
+    # kernel op instead
+    supports_delta_ell = True
 
     def __init__(self, irfn: I.IRFunction, schedule: Optional[Schedule] = None):
         self.f = irfn
@@ -59,6 +56,8 @@ class LocalCodegen:
         self.lane_scalars = set()          # per-source scalars of the active
         #                                    set loop (host-scalar semantics
         #                                    per source; [B] when batched)
+        self._delta_prop = None            # Min-relax prop of the active
+        #                                    delta-stepping fixedPoint
         # every engine knob is baked into the emitted source as a literal:
         # same Schedule -> byte-identical source
         self.schedule = resolve_schedule(schedule)
@@ -137,18 +136,73 @@ class LocalCodegen:
         if len(self.em.lines) == mark:
             self.em.w("pass")
 
+    # ---- delta-stepping detection (Schedule.priority == "delta") ------------
+    def _delta_target(self, body) -> Optional[str]:
+        """The value prop a delta-stepping lowering of this fixedPoint body
+        would bucket on: the unique int32 Min-relax target (SSSP's dist,
+        CC's comp). None when the knob is off or the body has no (or an
+        ambiguous) monotonic Min relax."""
+        if self.schedule.priority != "delta" or self.batch is not None:
+            return None
+        props = []
+
+        def scan(stmts):
+            for st in stmts:
+                if isinstance(st, I.IMinMaxUpdate) and st.kind == "Min" and \
+                        self.f.node_props.get(st.prop) == "int32":
+                    if st.prop not in props:
+                        props.append(st.prop)
+                for attr in ("body", "then", "els", "rev_body"):
+                    sub = getattr(st, attr, None)
+                    if sub:
+                        scan(sub)
+
+        scan(body)
+        return props[0] if len(props) == 1 else None
+
+    def _wants_dell(self) -> bool:
+        """True when the generated function should take the `_dell` padded
+        forward-ELL param: some fixedPoint in the program lowers to
+        delta-stepping and this backend relaxes through it."""
+        if not self.supports_delta_ell:
+            return False
+        fps = []
+
+        def scan(stmts):
+            for st in stmts:
+                if isinstance(st, I.IFixedPoint):
+                    fps.append(st)
+                for attr in ("body", "then", "els", "rev_body"):
+                    sub = getattr(st, attr, None)
+                    if sub:
+                        scan(sub)
+
+        scan(self.f.body)
+        return any(self._delta_target(fp.body) is not None for fp in fps)
+
     # ------------------------------------------------------------------ entry
+    # when True, `generate()` emits the `<name>__refresh` incremental
+    # variant: same body, extra `_warm/_reset/_seed` params, and a
+    # warm-override block right before the first top-level iterative
+    # construct (see `_emit_warm_start`). Set on a FRESH codegen instance
+    # by the `generate_*` factories — never flipped mid-generation.
+    refresh_variant = False
+
     def _sig_head(self, args):
-        return [args[0]]
+        # delta-stepping programs take the padded forward ELL view the
+        # compact relax gathers frontier out-rows from (None = dense fallback)
+        return [args[0]] + (["_dell=None"] if self._wants_dell() else [])
 
     def generate(self) -> str:
-        if self.schedule.priority == "delta":
-            raise not_ported('Schedule(priority="delta") (delta-stepping)', "7")
         f, em = self.f, self.em
         g = f.graph_param
         args = [p.name for p in f.params]
-        sig = ", ".join(self._sig_head(args) + [f"{a}=None" for a in args[1:]])
-        em.w(f"def {f.name}({sig}):")
+        name = f"{f.name}__refresh" if self.refresh_variant else f.name
+        tail = ["_warm=None", "_reset=None", "_seed=None"] \
+            if self.refresh_variant else []
+        sig = ", ".join(self._sig_head(args)
+                        + [f"{a}=None" for a in args[1:]] + tail)
+        em.w(f"def {name}({sig}):")
         with em.block():
             em.w(f"N = {g}.num_nodes")
             em.w(f"_dev = {g}.device")
@@ -161,11 +215,40 @@ class LocalCodegen:
                         em.w(f"{p.name} = rt.init_prop(N, {self.tdt(p.dtype)}, device=_dev)")
                 elif p.kind == "scalar":
                     self.dtypes[p.name] = p.dtype
+            warm_pending = self.refresh_variant
             for s in f.body:
+                if warm_pending and isinstance(
+                        s, (I.IFixedPoint, I.IDoWhile, I.IWhile)):
+                    self._emit_warm_start(s)
+                    warm_pending = False
                 self.stmt(s, HostCtx())
             rets = ", ".join(f"'{v}': {v}" for v in self.declared)
             em.w(f"return {{{rets}}}")
         return em.source()
+
+    def _emit_warm_start(self, s: I.IRStmt):
+        """Warm-override block of a `__refresh` variant.
+
+        Emitted AFTER the program's own init statements and immediately
+        before the first top-level iterative construct, so source-level
+        init writes (`src.dist = 0`) still stand for reset vertices:
+        every node property falls back to its previous converged value
+        except where `_reset` (the deletion cone) marks it stale, and for
+        a fixedPoint with a boolean convergence prop the `_seed` frontier
+        is OR-ed in so the first warm sweep relaxes exactly from the
+        update-incident vertices."""
+        em = self.em
+        em.w("if _warm is not None:")
+        with em.block():
+            for p in self.declared:
+                if p in self.f.node_props:
+                    em.w(f"{p} = rt.warm_start({p}, _warm.get('{p}'), _reset)")
+            if isinstance(s, I.IFixedPoint) and \
+                    self.f.node_props.get(s.conv_prop) == "bool":
+                em.w("if _seed is not None:")
+                with em.block():
+                    em.w(f"{s.conv_prop} = {s.conv_prop} "
+                         f"| torch.as_tensor(_seed, device=_dev)")
 
     # ------------------------------------------------------------------ stmts
     def stmt(self, s: I.IRStmt, ctx):
@@ -593,13 +676,23 @@ class LocalCodegen:
         frontier occupancy — or pinned by `Schedule.direction`; both
         branches compute the identical relaxation. Emitted inline (the same
         computation as rt.relax_minplus_hybrid — keep in sync) so the
-        generated source shows the full lowering."""
+        generated source shows the full lowering.
+
+        Inside a delta-stepping fixedPoint (`frontier` is the bucketed
+        window) the relax goes through `rt.relax_minplus_delta` instead:
+        same relaxation, but a frontier that fits the compact cap relaxes
+        only its gathered ELL out-rows."""
         em = self.em
         g = self.f.graph_param
         sched = self.schedule
         new = em.uid("new")
         if frontier is None:
             em.w(f"{new} = rt.relax_minplus_hybrid({g}, {s.prop}, None"
+                 f"{'' if weighted else ', weighted=False'})")
+            return new
+        if self._delta_prop == s.prop and self.supports_delta_ell:
+            em.w(f"{new} = rt.relax_minplus_delta({g}, {s.prop}, {frontier}, "
+                 f"_dell, max(min(N // 8, 4096), 32){self._engine_kwargs()}"
                  f"{'' if weighted else ', weighted=False'})")
             return new
         wexp = lambda w: f" + {w}" if weighted else ""  # noqa: E731
@@ -701,24 +794,67 @@ class LocalCodegen:
     def s_IFixedPoint(self, s: I.IFixedPoint, ctx):
         """`fixedPoint until (var : !conv)` → a host `while` that reads the
         on-device `finished` flag once per trip (a bool tensor: in Python
-        `~False == -1`)."""
+        `~False == -1`). Under delta-stepping the bucket index is a 0-d
+        device tensor, so the bucket advance adds no host read."""
         em = self.em
         if self.batch is not None:
             raise CodegenError("fixedPoint inside a batched source loop")
         conv = s.conv_prop
+        delta = self._delta_target(s.body)
+        if delta is not None and (delta == conv or
+                                  self.f.node_props.get(conv) != "bool"):
+            delta = None    # bucketing needs a bool pending-mask conv prop
         self.declare(s.var, "bool")
         em.w(f"{s.var} = torch.as_tensor(False, device=_dev)")
+        n = em.uid("fp")
+        if delta is not None:
+            em.w(f"{n}_bk = torch.zeros((), dtype=torch.int32, device=_dev)")
         em.w(f"while not bool({s.var}):")
         with em.block():
-            em.w(f"{conv}_nxt = torch.zeros_like({conv})")
+            if delta is None:
+                em.w(f"{conv}_nxt = torch.zeros_like({conv})")
+            else:
+                # delta-stepping: the sweep's frontier is the pending set
+                # restricted to the current bucket window; out-of-window
+                # pending vertices seed the next sweep's pending set
+                self._emit_delta_preamble(n, delta, conv)
+                em.w(f"{conv}_nxt = {n}_keep")
             saved = dict(self.write_alias)
             self.write_alias[conv] = f"{conv}_nxt"
+            prev_dprop = self._delta_prop
+            self._delta_prop = delta
             try:
                 self.body(s.body, ctx)
             finally:
+                self._delta_prop = prev_dprop
                 self.write_alias = saved
             em.w(f"{conv} = {conv}_nxt")
             self.emit_finished(s.var, conv)
+
+    def _emit_delta_preamble(self, n: str, vprop: str, conv: str):
+        """Bucketed-frontier preamble of a delta-stepping fixedPoint body.
+
+        The window is upper-bound-only — `value < (bk + 1) * Δ` — so values
+        that move backwards into earlier buckets (CC's component min) stay
+        in the window; the fused advance jumps `bk` straight to the bucket
+        of the smallest pending value, so no sweep relaxes an empty
+        frontier. Rebinding `conv` to the windowed frontier makes every
+        downstream filter/relax emission see the bucketed frontier."""
+        em = self.em
+        d = self.schedule.delta_bucket
+        em.w(f"{n}_bk = torch.where("
+             f"{self._delta_any(f'{conv} & ({vprop} < ({n}_bk + 1) * {d})')}, "
+             f"{n}_bk, "
+             f"{self._delta_min(f'torch.where({conv}, {vprop}, rt.INF)')} // {d})")
+        em.w(f"{n}_fr = {conv} & ({vprop} < ({n}_bk + 1) * {d})")
+        em.w(f"{n}_keep = {conv} & ~{n}_fr")
+        em.w(f"{conv} = {n}_fr")
+
+    def _delta_any(self, expr: str) -> str:
+        return f"torch.any({expr})"
+
+    def _delta_min(self, expr: str) -> str:
+        return f"torch.amin({expr})"
 
     def emit_finished(self, var: str, conv: str):
         self.em.w(f"{var} = ~torch.any({conv})")
@@ -915,8 +1051,24 @@ class LocalCodegen:
         return True
 
 
+def has_refresh_variant(irfn: I.IRFunction) -> bool:
+    """True when a `<name>__refresh` incremental variant is emitted next to
+    the program: the body has a TOP-LEVEL iterative construct to
+    warm-start. Programs whose loops live inside a set loop (BC's
+    per-source BFS) or that have no loop at all (TC) get no variant."""
+    return any(isinstance(s, (I.IFixedPoint, I.IDoWhile, I.IWhile))
+               for s in irfn.body)
+
+
 def generate_local(irfn: I.IRFunction, schedule: Optional[Schedule] = None) -> str:
-    """Emit the local-backend source under `schedule` (default: the default
-    `Schedule`). Every knob is baked in as a literal — the same schedule
-    yields byte-identical source."""
-    return LocalCodegen(irfn, schedule=schedule).generate()
+    """Emit the local-backend source under `schedule` (default: the ENGINE
+    shim's snapshot). Every knob is baked in as a literal — the same
+    schedule yields byte-identical source. Programs with a top-level
+    iterative construct additionally carry a `<name>__refresh` variant
+    (a fresh codegen instance: emitter/declared state is per-function)."""
+    src = LocalCodegen(irfn, schedule=schedule).generate()
+    if has_refresh_variant(irfn):
+        cg = LocalCodegen(irfn, schedule=schedule)
+        cg.refresh_variant = True
+        src = src + "\n\n" + cg.generate()
+    return src

@@ -14,7 +14,9 @@ Entries hold a WEAK reference to the graph: `id(g)` alone is unsafe (ids
 are reused after GC) and a strong reference would leak every graph ever
 run. `prepare(g, schedule)` is the explicit warm-up entry point.
 `fingerprint()` is a stable content digest of the graph and `stats()`
-summarizes its degree distribution and frontier growth.
+summarizes its degree distribution and frontier growth. Across a
+`g.update()`, `adopt_patched_views` carries the sliced views to the new
+version by patching them.
 """
 from __future__ import annotations
 
@@ -63,12 +65,39 @@ class GraphContext:
         """The (kind, ...) keys of every view built so far (introspection)."""
         return sorted(self._views, key=repr)
 
-    # ---- memory accounting -------------------------------------------------
+    # ---- memory accounting + eviction ------------------------------------
+    # views that are metadata (a digest string, a stats dict), not device
+    # memory: never worth evicting, and they key persisted tuning records
+    _META_VIEWS = ("fingerprint", "stats")
+
     def view_nbytes(self) -> dict:
         """Bytes of tensor storage held by each built view, keyed like
         `_views` (a storage shared between tensors is counted once per
-        view; metadata views count zero)."""
+        view; metadata views count zero). The sweep plan is a view of its
+        own, so it is counted."""
         return {k: _storage_nbytes(v) for k, v in self._views.items()}
+
+    def total_view_nbytes(self) -> int:
+        """Bytes held by every derived view."""
+        return sum(self.view_nbytes().values())
+
+    def drop_view(self, key) -> bool:
+        """Forget one memoized view (it rebuilds lazily on next request).
+        Returns True when the key was present."""
+        return self._views.pop(key, None) is not None
+
+    def drop_derived_views(self) -> int:
+        """Evict every *derived* view (sliced-ELL and its sweep plan,
+        delta-ELL, padded ELL), keeping the metadata views (`fingerprint`,
+        `stats`) that key tuning records. Returns the bytes freed.
+        Consumers resolve views through the context per call, so the next
+        query transparently re-prepares."""
+        freed = 0
+        for key in list(self._views):
+            if key[0] in self._META_VIEWS:
+                continue
+            freed += _storage_nbytes(self._views.pop(key))
+        return freed
 
     # ---- the derived structures ------------------------------------------
     def sliced_ell(self, schedule: Optional[Schedule] = None, *,
@@ -92,6 +121,23 @@ class GraphContext:
         """Dense padded `[N, max_deg]` ELL view (baseline)."""
         return self.view(("ell", bool(reverse)),
                          lambda g: to_ell(g, reverse=reverse))
+
+    # a padded forward ELL costs N * round8(max_deg) cells; past this many
+    # multiples of E (hub-heavy degree distributions) the compact bucket
+    # relax would gather mostly padding, so delta-stepping falls back dense
+    DELTA_ELL_MAX_BLOWUP = 8
+
+    def delta_ell(self):
+        """Forward padded ELL view for the delta-stepping compact relax
+        (`rt.relax_minplus_delta` gathers frontier out-rows from it), or
+        None when the padding blowup makes it uneconomical — the relax then
+        takes its dense fallback, which computes the same fixed point."""
+        def build(g):
+            cells = g.num_nodes * max(-(-max(int(g.max_out_degree), 1) // 8) * 8, 8)
+            if cells > self.DELTA_ELL_MAX_BLOWUP * max(g.num_edges, 1):
+                return None
+            return to_ell(g, reverse=False)
+        return self.view(("delta_ell",), build)
 
     def fingerprint(self) -> str:
         """Stable content digest of the graph (structure + weights)."""
@@ -209,6 +255,21 @@ def get_context(g: CSRGraph) -> GraphContext:
     return entry[1]
 
 
+def contains(g: CSRGraph) -> bool:
+    """True if `g` currently has a live registered context."""
+    entry = _REGISTRY.get(id(g))
+    return entry is not None and entry[0]() is g
+
+
+def registry_size() -> int:
+    return len(_REGISTRY)
+
+
+def clear() -> None:
+    """Drop every registered context (tests / memory pressure)."""
+    _REGISTRY.clear()
+
+
 def prepare(g: CSRGraph, schedule: Optional[Schedule] = None, *,
             backend: str = "cuda", program=None) -> GraphContext:
     """Explicit warm-up: build the derived structures `backend` needs so the
@@ -233,3 +294,30 @@ def prepare(g: CSRGraph, schedule: Optional[Schedule] = None, *,
         raise ValueError(
             f"unknown backend {backend!r}; expected 'local' or 'cuda'")
     return ctx
+
+
+def adopt_patched_views(delta) -> GraphContext:
+    """Carry the old graph's sliced-ELL views across a `g.update()`.
+
+    `apply_update` calls this eagerly with the `GraphDelta` it built: every
+    `("sliced_ell", reverse, layout)` view the OLD graph's context holds is
+    delta-patched (`repro_torch.graph.dynamic.patch_sliced_ell`) and
+    installed into the NEW graph's context, so post-update queries skip
+    the O(N + E) view rebuild. Other derived views are left to rebuild
+    lazily — the sweep plan among them: it belongs to one view object, and
+    the patched view is a new one.
+
+    Returns the new graph's context (registered even when the old graph
+    never had one, so the fingerprint/bind machinery sees the new
+    `version` immediately)."""
+    from ..graph.dynamic import patch_sliced_ell
+    new_ctx = get_context(delta.graph)
+    if contains(delta.old):
+        old_ctx = get_context(delta.old)
+        for key in old_ctx.view_keys():
+            if key[0] != "sliced_ell" or key in new_ctx._views:
+                continue
+            _, rev, _layout = key
+            new_ctx._views[key] = patch_sliced_ell(
+                old_ctx._views[key], delta, reverse=rev)
+    return new_ctx

@@ -6,7 +6,9 @@ handling (the paper's atomics) stays structural: `scatter_min` is a
 scatter-reduce with "amin" (min is order-independent, so it is
 deterministic), pull reductions are segment reductions over the sorted
 in-edge ids. Float sums by `segment_sum` / `scatter_add` run with atomics
-on the card, so their rounding order is not fixed.
+on the card, so their order is not fixed: float32 sums there accumulate in
+float64 and round once (`_index_add`), so the order moves the result by an
+ulp at most, not by the float32 error of a hub row's thousands of terms.
 
 Where the reference branches on the device (`lax.cond`, `while_loop`),
 generated code branches on the host: the predicates below read one device
@@ -17,8 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..graph.csr import INF_I32, CSRGraph
-from ..schedule import DEFAULT_SCHEDULE
+from ..graph.csr import ENGINE, INF_I32, CSRGraph
 
 INF = int(INF_I32)   # a Python int, so int32 tensors stay int32 in arithmetic
 
@@ -49,9 +50,29 @@ def scatter_max(current, idx, cand):
     return current.scatter_reduce(0, idx.long(), cand.expand(idx.shape), "amax")
 
 
+# float64 elements per chunk of a float32 sum on the card (1 GiB)
+_F64_CHUNK = 1 << 27
+
+
+def _index_add(out, idx, vals):
+    """out[..., idx[k]] += vals[..., k] along the last axis, in place.
+    A float32 `out` on the card accumulates in float64, a chunk of edges at
+    a time, and is rounded once: atomics add in no fixed order, and in
+    float32 that order moves an iterative program's answer (batched ppr
+    carries it through every sweep) by ~1e-4 of a value from run to run."""
+    dim = out.dim() - 1
+    if not (out.is_cuda and out.dtype == torch.float32):
+        return out.index_add_(dim, idx, vals)
+    acc = out.double()
+    step = max(1, _F64_CHUNK // max(1, out[..., :1].numel()))
+    for lo in range(0, idx.shape[0], step):
+        acc.index_add_(dim, idx[lo:lo + step], vals[..., lo:lo + step].double())
+    return out.copy_(acc)
+
+
 def scatter_add(current, idx, vals):
     vals = torch.as_tensor(vals, dtype=current.dtype, device=current.device)
-    return current.index_add(0, idx.long(), vals.expand(idx.shape))
+    return _index_add(current.clone(), idx.long(), vals.expand(idx.shape))
 
 
 def scatter_or(current, idx, vals):
@@ -68,7 +89,7 @@ def segment_sum(vals, seg_ids, num_segments, sorted_ids=True):
     depends on it."""
     vals = torch.as_tensor(vals)
     out = torch.zeros((num_segments,), dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, seg_ids.long(), vals.expand(seg_ids.shape))
+    return _index_add(out, seg_ids.long(), vals.expand(seg_ids.shape))
 
 
 def segment_min(vals, seg_ids, num_segments, sorted_ids=True):
@@ -105,12 +126,12 @@ def _segment_rows(vals, seg_ids, num_segments, reduce, fill):
 
 
 def segment_sum_batch(vals, seg_ids, num_segments, sorted_ids=True):
-    """vals [B, E], seg_ids [E] → [B, num_segments]. Float sums add with
-    atomics on the card, so their order is not fixed."""
+    """vals [B, E], seg_ids [E] → [B, num_segments] (float32 on the card
+    accumulated in float64, see `_index_add`)."""
     segment_sum_batch.calls += 1
     out = torch.zeros((vals.shape[0], num_segments + 1), dtype=vals.dtype,
                       device=vals.device)
-    out.index_add_(1, _spare_col(seg_ids, num_segments), vals)
+    _index_add(out, _spare_col(seg_ids, num_segments), vals)
     return out[:, :num_segments].contiguous()
 
 
@@ -146,7 +167,7 @@ def scatter_min_rows(current, idx, cand):
 def scatter_add_rows(current, idx, vals):
     n = current.shape[1]
     out = _with_spare(current)
-    out.index_add_(1, _spare_col(idx, n), vals)
+    _index_add(out, _spare_col(idx, n), vals)
     return out[:, :n].contiguous()
 
 
@@ -225,14 +246,14 @@ def frontier_should_push(frontier: torch.Tensor, n: int,
                          direction: str = "auto") -> bool:
     """True when the frontier is sparse enough that push (scatter from the
     few active sources) beats a pull sweep. The knob is
-    `Schedule.push_threshold_frac` (fraction of N); `None` takes the
-    default schedule's. A pinned `direction` short-circuits the test.
-    Reads one device scalar."""
+    `Schedule.push_threshold_frac` (fraction of N); `None` falls back to
+    the deprecated `ENGINE` shim. A pinned `direction` short-circuits the
+    test. Reads one device scalar."""
     if direction == "push":
         return True
     if direction == "pull":
         return False
-    frac = DEFAULT_SCHEDULE.push_threshold_frac if threshold_frac is None \
+    frac = ENGINE.push_threshold_frac if threshold_frac is None \
         else threshold_frac
     return int(frontier_size(frontier)) <= max(int(n * frac), 1)
 
@@ -278,11 +299,57 @@ def relax_minplus_hybrid(g: CSRGraph, dist: torch.Tensor,
     return pull(dist)
 
 
+# --- delta-stepping (priority-bucketed) relaxation -----------------------------
+#
+# Schedule.priority == "delta" restricts each fixedPoint sweep to the
+# vertices whose tentative value falls below the current bucket boundary
+# (k + 1) * delta_bucket. Min relaxation is monotone, so any frontier
+# restriction that eventually processes every modified vertex reaches the
+# identical fixed point; the payoff is per-sweep work: a settled bucket's
+# frontier is small, and the compact path below relaxes only its out-rows
+# (O(cap * max_deg) through a padded ELL gather) instead of all E edges.
+
+def relax_minplus_delta(g: CSRGraph, dist: torch.Tensor, frontier: torch.Tensor,
+                        ell=None, cap: int | None = None,
+                        threshold_frac: float | None = None,
+                        direction: str = "auto",
+                        weighted: bool = True) -> torch.Tensor:
+    """One bucketed min relaxation over `frontier` sources (the caller has
+    already restricted the frontier to the current delta bucket).
+
+    With a padded forward ELL view and a `cap`, a frontier of at most
+    `cap` vertices takes the compact path: its ids (ascending, as the
+    reference's cumsum compaction orders them), their padded out-rows
+    gathered, the candidates scatter-min'd. Pad cells (col == n) are
+    masked to INF and land in a spare slot n that is sliced off. A larger
+    frontier — and `ell=None` (hub-heavy graphs where the ELL view's
+    padding is uneconomical) — takes the dense hybrid sweep, which
+    computes the same relaxation. The reference's `lax.cond` on the
+    frontier size is a host branch here: `nonzero` reads the size."""
+    if ell is None or cap is None or cap <= 0:
+        return relax_minplus_hybrid(g, dist, frontier, threshold_frac,
+                                    direction, weighted)
+    n = g.num_nodes
+    ids = torch.nonzero(frontier).flatten()
+    if ids.shape[0] > min(int(cap), n):
+        return relax_minplus_hybrid(g, dist, frontier, threshold_frac,
+                                    direction, weighted)
+    cols = ell.cols[ids]                                   # [k, D]
+    valid = cols < n
+    src = dist[ids][:, None]
+    cand = src + ell.wts[ids] if weighted else src.expand(cols.shape)
+    cand = torch.where(valid, cand, INF)
+    tgt = torch.where(valid, cols, n)                      # n → spare slot
+    out = torch.cat([dist, dist.new_full((1,), INF)])
+    out.scatter_reduce_(0, tgt.flatten().long(), cand.flatten(), "amin")
+    return out[:n]
+
+
 def frontier_rows_should_push(frontier: torch.Tensor, n: int,
                               threshold_frac: float | None = None) -> torch.Tensor:
     """Per-row push/pull choice for a [B, N] batched frontier → bool[B]
-    (on the device)."""
-    frac = DEFAULT_SCHEDULE.push_threshold_frac if threshold_frac is None \
+    (on the device). `None` falls back to the deprecated `ENGINE` shim."""
+    frac = ENGINE.push_threshold_frac if threshold_frac is None \
         else threshold_frac
     occ = torch.sum(frontier, dim=1, dtype=torch.int32)
     return occ <= max(int(n * frac), 1)
@@ -341,6 +408,20 @@ def relax_minplus_hybrid_batch(g: CSRGraph, dist: torch.Tensor,
         lambda d: pull(push(d, frontier & rows_push[:, None]),
                        frontier & ~rows_push[:, None]),
         dist)
+
+
+def relax_minplus_delta_batch(g: CSRGraph, dist: torch.Tensor,
+                              frontier: torch.Tensor,
+                              threshold_frac: float | None = None,
+                              direction: str = "auto",
+                              weighted: bool = True) -> torch.Tensor:
+    """Batched bucketed min relaxation: dist [B, N], frontier [B, N] already
+    restricted per row to that row's current delta bucket. Each lane
+    settles its own bucket sequence, so there is no whole-batch compact
+    buffer: the restriction itself is the win, and the relaxation routes
+    through the batched hybrid."""
+    return relax_minplus_hybrid_batch(g, dist, frontier, threshold_frac,
+                                      direction, weighted)
 
 
 # --- BFS (iterateInBFS construct) ----------------------------------------------
@@ -421,11 +502,13 @@ def sssp_multi(g: CSRGraph, sources, threshold_frac: float | None = None,
                delta_bucket: int = 64) -> torch.Tensor:
     """Multi-query SSSP: one batched fixed point answering B source queries
     per sweep. Returns dist int32[B, N]; row b == SSSP from sources[b]. A
-    host `while` reads one device flag per sweep."""
-    if priority == "delta":
-        raise NotImplementedError(
-            'sssp_multi(priority="delta") is not ported to repro_torch yet '
-            "(ROADMAP.md queue 1, item 7)")
+    host `while` reads one device flag per sweep.
+
+    `priority="delta"` runs each lane's fixed point as delta-stepping: a
+    sweep relaxes only the lane's vertices below its current bucket
+    boundary, and a lane whose bucket settled jumps straight to the bucket
+    of its smallest pending value. The fixed point is unchanged (Min is
+    monotone); only the per-sweep work shrinks."""
     n = g.num_nodes
     sources = torch.as_tensor(sources, device=g.device).long()
     b = sources.shape[0]
@@ -434,9 +517,24 @@ def sssp_multi(g: CSRGraph, sources, threshold_frac: float | None = None,
     dist[lanes, sources] = 0
     fr = torch.zeros((b, n), dtype=torch.bool, device=g.device)
     fr[lanes, sources] = True
-    while bool(torch.any(fr)):
-        d2 = relax_minplus_hybrid_batch(g, dist, fr, threshold_frac, direction)
-        fr = d2 < dist
+    if priority != "delta":
+        while bool(torch.any(fr)):
+            d2 = relax_minplus_hybrid_batch(g, dist, fr, threshold_frac, direction)
+            fr = d2 < dist
+            dist = d2
+        return dist
+    delta = int(delta_bucket)
+    mod = fr
+    bk = torch.zeros((b,), dtype=torch.int32, device=g.device)
+    while bool(torch.any(mod)):
+        # fused bucket advance: a lane whose window emptied jumps to the
+        # bucket of its smallest pending value (upper-bound-only window)
+        pend_min = torch.amin(torch.where(mod, dist, INF), dim=1)
+        in_win = torch.any(mod & (dist < ((bk + 1) * delta)[:, None]), dim=1)
+        bk = torch.where(in_win, bk, pend_min // delta)
+        fr = mod & (dist < ((bk + 1) * delta)[:, None])
+        d2 = relax_minplus_delta_batch(g, dist, fr, threshold_frac, direction)
+        mod = (d2 < dist) | (mod & ~fr)
         dist = d2
     return dist
 
@@ -543,6 +641,23 @@ def set_at(prop: torch.Tensor, idx, value) -> torch.Tensor:
     out = prop.clone()
     out[idx] = value
     return out
+
+
+def warm_start(init, warm, reset=None):
+    """Per-property warm start of an incremental refresh (`__refresh`
+    variants call this right before the iterative construct).
+
+    `init` is the property AFTER the program's own init statements ran, so
+    source writes (e.g. `dist[src] = 0`) survive for reset vertices. With
+    no previous value the cold init stands; with one, `reset` marks the
+    vertices whose previous value may be stale (the deletion cone) and
+    falls back to the cold init there."""
+    if warm is None:
+        return init
+    warm = torch.as_tensor(warm, dtype=init.dtype, device=init.device)
+    if reset is None:
+        return warm
+    return torch.where(torch.as_tensor(reset, device=init.device), init, warm)
 
 
 def init_prop_batch(b, n, dtype, value=None, *, device):

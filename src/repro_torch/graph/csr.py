@@ -14,6 +14,7 @@ graph constructor takes `device=None`, which means `cuda`, and raises
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -40,11 +41,66 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+_ENGINE_DEPRECATION = (
+    "mutating the module-level ENGINE is deprecated; construct an explicit "
+    "repro_torch.schedule.Schedule and pass it to compile_program(..., "
+    "schedule=...) / prepare(g, schedule) instead. ENGINE is snapshotted "
+    "into a Schedule at compile/prepare time, so mutating it afterwards "
+    "never changes an already-compiled program."
+)
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    """DEPRECATED mutable shim over the default `Schedule`, as in the
+    reference: reads are free; every mutation validates the would-be
+    configuration (the same checks as `Schedule`), emits a
+    `DeprecationWarning`, and only takes effect for *future*
+    compiles/prepares via `snapshot()`."""
+
+    # field defaults come from DEFAULT_SCHEDULE, so an unmutated shim
+    # snapshots exactly the default Schedule
+    num_buckets: int = DEFAULT_SCHEDULE.num_buckets
+    min_width: int = DEFAULT_SCHEDULE.min_width
+    growth: int = DEFAULT_SCHEDULE.growth
+    push_threshold_frac: float = DEFAULT_SCHEDULE.push_threshold_frac
+    batch_sources: int = DEFAULT_SCHEDULE.batch_sources
+
+    def __post_init__(self):
+        self.snapshot()           # validate the defaults once
+        object.__setattr__(self, "_ready", True)
+
+    def __setattr__(self, name, value):
+        if getattr(self, "_ready", False) and not name.startswith("_"):
+            knobs = {f.name: getattr(self, f.name)
+                     for f in dataclasses.fields(self)}
+            if name not in knobs:
+                raise AttributeError(
+                    f"ENGINE has no knob {name!r}; knobs: "
+                    f"{', '.join(sorted(knobs))}")
+            knobs[name] = value
+            Schedule(**knobs)     # actionable ValueError before committing
+            warnings.warn(_ENGINE_DEPRECATION, DeprecationWarning,
+                          stacklevel=2)
+        object.__setattr__(self, name, value)
+
+    def snapshot(self, *, direction: str = "auto") -> Schedule:
+        """Materialize the current knob values as a frozen `Schedule`."""
+        return Schedule(num_buckets=self.num_buckets,
+                        min_width=self.min_width, growth=self.growth,
+                        push_threshold_frac=self.push_threshold_frac,
+                        batch_sources=self.batch_sources,
+                        direction=direction)
+
+
+ENGINE = EngineConfig()
+
+
 def resolve_schedule(schedule: Optional[Schedule] = None) -> Schedule:
-    """The one place a default schedule is materialized (`None` is the
-    default `Schedule`; the reference's deprecated `ENGINE` shim is not
-    ported)."""
-    sched = DEFAULT_SCHEDULE if schedule is None else schedule
+    """The one place a default schedule is materialized: `None` snapshots
+    the deprecated `ENGINE` shim (which, unless mutated, IS the default
+    `Schedule`)."""
+    sched = ENGINE.snapshot() if schedule is None else schedule
     if not isinstance(sched, Schedule):
         raise TypeError(
             f"schedule must be a repro_torch.schedule.Schedule, got "
@@ -98,8 +154,8 @@ class CSRGraph:
     num_edges: int
     max_out_degree: int = 1
     max_in_degree: int = 1
-    # update generation (0 for a freshly built graph); folded into the
-    # context fingerprint
+    # update generation: 0 for a freshly built graph, old.version + 1 for
+    # the result of `update()`; folded into the context fingerprint
     version: int = 0
 
     @property
@@ -108,6 +164,18 @@ class CSRGraph:
 
     def to(self, device) -> "CSRGraph":
         return _tensor_fields_to(self, device)
+
+    def update(self, adds=None, dels=None, weights=None):
+        """Apply an edge write batch, returning a `repro_torch.graph.dynamic.
+        GraphDelta` whose `.graph` is the NEW graph version (this graph is
+        immutable and untouched). `adds`/`dels` are (src, dst) pairs — a
+        `[K, 2]` array or a pair of arrays; `weights` parallels `adds`
+        (default 1; adding an existing edge replaces its weight). Deleting
+        an absent edge is a no-op. The sliced-ELL views of this graph's
+        `GraphContext` are delta-patched into the new graph's context
+        rather than rebuilt."""
+        from .dynamic import apply_update
+        return apply_update(self, adds=adds, dels=dels, weights=weights)
 
 
 def _build_csr(n: int, src: np.ndarray, dst: np.ndarray, w: np.ndarray):

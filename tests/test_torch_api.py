@@ -132,17 +132,37 @@ def test_compile_and_bind_caches(graphs):
     ("sssp", dict(schedule=Schedule(priority="delta"))),
 ])
 @pytest.mark.parametrize("backend", ["local", "cuda"])
-def test_later_slices_raise_not_implemented(name, kw, backend):
-    # delta-stepping is queue 1, item 7; every bundled program compiles
-    # under the default schedule (tests/test_torch_programs.py)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7"):
-        tc.compile_bundled(name, backend=backend, **kw)
+def test_later_slices_raise_not_implemented(name, kw, backend, graphs):
+    # once the raise of a construct a later slice ports; delta-stepping is
+    # ported now (queue 1, item 7), so the same six cases hold the port's
+    # delta programs against the reference's `local` and `pallas` under the
+    # same schedule (tests/test_torch_schedule.py has the full matrix)
+    g = graphs["powerlaw"]
+    params = dict(src=0) if name == "sssp" else {}
+    rsched = rc.Schedule(priority="delta", delta_bucket=kw["schedule"].delta_bucket)
+    got = tc.compile_bundled(name, backend=backend, **kw).bind(carry(g))(**params)
+    for rb in ("local", "pallas"):
+        want = rc.compile_bundled(name, backend=rb, schedule=rsched)(g, **params)
+        assert_agree(want, got, f"{name} delta torch {backend} vs jax {rb}")
 
 
 def test_refresh_is_not_ported(graphs):
-    bound = tc.compile_bundled("sssp", backend="local").bind(carry(graphs["small"]))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        bound.refresh({}, None)
+    # once the raise of the unported refresh (queue 1, item 8); now the
+    # port's refresh after one write batch equals the reference's refresh
+    # and a cold call on the new graph
+    g = graphs["small"]
+    sched = Schedule(refresh_threshold_frac=1.0)
+    rsched = rc.Schedule(refresh_threshold_frac=1.0)
+    tgr = carry(g)
+    adds, dels = [(0, 9), (3, 17), (5, 40)], [(int(g.edge_src[0]), int(g.indices[0]))]
+    rdelta, delta = g.update(adds, dels, weights=[2, 3, 4]), tgr.update(adds, dels, weights=[2, 3, 4])
+    for tb, rb in (("local", "local"), ("cuda", "pallas")):
+        prog = tc.compile_bundled("sssp", backend=tb, schedule=sched)
+        ref = rc.compile_bundled("sssp", backend=rb, schedule=rsched)
+        got = prog.bind(delta.graph).refresh(prog.bind(tgr)(src=0), delta, src=0)
+        want = ref.bind(rdelta.graph).refresh(ref.bind(g)(src=0), rdelta, src=0)
+        assert torch.equal(got["dist"], prog.bind(delta.graph)(src=0)["dist"])
+        assert np.array_equal(got["dist"].numpy(), np.asarray(want["dist"])), tb
 
 
 def test_analysis_gate_and_entry_errors():

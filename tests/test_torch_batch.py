@@ -141,8 +141,14 @@ def test_sssp_multi_rows_match_reference_and_single_source(gname, direction, gra
 
 
 def test_sssp_multi_delta_names_its_item(graphs):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        trt.sssp_multi(graphs["UR"][1], [0, 1], priority="delta")
+    # once the raise of the unported delta branch (queue 1, item 7); now
+    # the delta branch equals the reference's and the monotonic sweep
+    g, tgr = graphs["UR"]
+    srcs = np.array([0, 1], np.int32)
+    want = np.asarray(rrt.sssp_multi(g, jnp.asarray(srcs), priority="delta"))
+    got = trt.sssp_multi(tgr, srcs, priority="delta")
+    assert np.array_equal(got.numpy(), want)
+    assert torch.equal(got, trt.sssp_multi(tgr, srcs))
 
 
 @pytest.mark.parametrize("gname", ["UR", "powerlaw"])

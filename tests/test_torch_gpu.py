@@ -272,6 +272,134 @@ def test_programs_on_the_card_match_the_cpu(cuda, name, batch_sources):
                 assert torch.equal(b, a), (backend, key)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [1 << 27, 1000])
+def test_float_sums_on_the_card_round_once(cuda, chunk, monkeypatch):
+    """float32 segment sums on the card accumulate in float64 and round
+    once: a hub row of ~10^6 terms lands within an ulp of the float64 sum,
+    whatever order the atomics take and however the edges are chunked."""
+    from repro_torch.core import runtime as rt
+    monkeypatch.setattr(rt, "_F64_CHUNK", chunk)
+    rng = np.random.default_rng(5)
+    e, n = 1 << 20, 64
+    seg = np.sort(np.concatenate([np.zeros(e - 1000, np.int64), rng.integers(1, n, 1000)]))
+    vals = rng.random((3, e)).astype(np.float32)
+    want = np.stack([np.bincount(seg, weights=v.astype(np.float64), minlength=n)
+                     for v in vals]).astype(np.float32)
+    seg_t = torch.from_numpy(seg).to(cuda)
+    vals_t = torch.from_numpy(vals).to(cuda)
+    np.testing.assert_allclose(rt.segment_sum_batch(vals_t, seg_t, n).cpu().numpy(),
+                               want, rtol=2.0 ** -23, atol=0)
+    np.testing.assert_allclose(rt.segment_sum(vals_t[0], seg_t, n).cpu().numpy(),
+                               want[0], rtol=2.0 ** -23, atol=0)
+    base = torch.ones((3, n), device=cuda)
+    np.testing.assert_allclose(rt.scatter_add_rows(base, seg_t, vals_t).cpu().numpy(),
+                               (want.astype(np.float64) + 1).astype(np.float32),
+                               rtol=2.0 ** -22, atol=0)
+
+
+
+# --- the serving path: delta-stepping, updates, refresh, GraphService --------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("delta", [1, 16, 64])
+def test_delta_on_the_card(cuda, delta):
+    """sssp, cc and lp under priority="delta": both backends on the card
+    equal the default schedule; the cuda sssp run pinned to pull launches
+    the sweep (auto may push every bucket on a small graph), the local one
+    takes the compact `_dell` relax or its fallback."""
+    g = preferential_attachment(600, m=6, seed=11, device=cuda)
+    for name, params in (("sssp", dict(src=0)), ("cc", {}), ("lp", {})):
+        want = compile_bundled(name, backend="local").bind(g)(**params)
+        for backend in ("cuda", "local"):
+            for direction in ("auto", "pull"):
+                sched = Schedule(priority="delta", delta_bucket=delta, direction=direction)
+                ell_sweep.launches = 0
+                got = compile_bundled(name, backend=backend, schedule=sched).bind(g)(**params)
+                if name == "sssp" and backend == "cuda" and direction == "pull":
+                    assert ell_sweep.launches > 0
+                for key in want:
+                    assert torch.equal(got[key], want[key]), (name, backend, direction, key)
+
+
+def write_batch(g, rng, k=60):
+    n = g.num_nodes
+    adds = np.stack([rng.integers(0, n, k), rng.integers(0, n, k)], 1)
+    idx = rng.choice(g.num_edges, k, replace=False)
+    dels = np.stack([g.edge_src.cpu().numpy()[idx], g.indices.cpu().numpy()[idx]], 1)
+    return adds, dels, rng.integers(1, 101, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [7, 4096])
+def test_patched_view_sweep_on_the_card(cuda, chunk):
+    """The sweep on a patched view (padding rows mid-bucket, the sorted
+    hub tail) against `ell_sweep_ref` on the same view and plan."""
+    from repro_torch.core import get_context
+    g = preferential_attachment(3000, m=8, seed=11, device=cuda)
+    sched = Schedule(num_buckets=2, min_width=8, growth=2)
+    get_context(g).sliced_ell(sched, reverse=True)
+    delta = g.update(*write_batch(g, np.random.default_rng(chunk))[:2])
+    ell = get_context(delta.graph).sliced_ell(sched, reverse=True)
+    assert bool((ell.hub_rows[1:] >= ell.hub_rows[:-1]).all())
+    plan = build_sweep_plan(ell, chunk=chunk)
+    n = g.num_nodes
+    rng = np.random.default_rng(n)
+    dist = torch.from_numpy(rng.integers(0, 500, n).astype(np.int32)).to(cuda)
+    got = ell_sweep(ell, plan, dist, semiring="minplus", dist=dist)
+    assert torch.equal(got, ell_sweep_ref(ell, plan, dist, "minplus", dist))
+    x = torch.from_numpy(rng.random(n).astype(np.float32)).to(cuda)
+    torch.testing.assert_close(ell_sweep(ell, plan, x, semiring="plustimes"),
+                               ell_sweep_ref(ell, plan, x, "plustimes"), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sssp", "pr"])
+def test_refresh_on_the_card(cuda, name):
+    g = preferential_attachment(3000, m=8, seed=11, device=cuda)
+    params = dict(src=0) if name == "sssp" else dict(beta=1e-6, delta=0.85, maxIter=200)
+    prog = compile_bundled(name, backend="cuda", schedule=Schedule(refresh_threshold_frac=1.0))
+    prev = prog.bind(g)(**params)
+    delta = g.update(*write_batch(g, np.random.default_rng(1)))
+    bound = prog.bind(delta.graph)
+    ell_sweep.launches = 0
+    warm = bound.refresh(prev, delta, **params)
+    assert ell_sweep.launches > 0
+    cold = bound(**params)
+    if name == "sssp":
+        assert torch.equal(warm["dist"], cold["dist"])
+    else:
+        torch.testing.assert_close(warm["pageRank"], cold["pageRank"], rtol=1e-3, atol=1e-7)
+
+
+@pytest.mark.gpu
+def test_graph_service_on_the_card(cuda):
+    """GraphService on `cuda`: coalesced and lone answers equal the bound
+    programs on the card; the lone sssp query launches the sweep."""
+    import asyncio
+    from repro_torch.core import runtime as rt
+    from repro_torch.serve import GraphService, ServiceConfig
+    g = preferential_attachment(3000, m=8, seed=11, device=cuda)
+    srcs = [0, 5, 9, 17, 42, 99]
+
+    async def main():
+        async with GraphService(ServiceConfig(backend="cuda", max_wait_ms=10.0)) as svc:
+            svc.register_graph("g", g)
+            res = await asyncio.gather(*(svc.query("g", "sssp", src=s) for s in srcs),
+                                       *(svc.query("g", "bfs", src=s) for s in srcs))
+            ell_sweep.launches = 0
+            lone = await svc.query("g", "sssp", src=7)
+            return res, lone, ell_sweep.launches, svc.stats()
+
+    res, lone, launches, st = asyncio.run(main())
+    bound = compile_bundled("sssp", backend="cuda").bind(g)
+    for s, row in zip(srcs, res[:len(srcs)]):
+        assert np.array_equal(row, bound(src=s)["dist"].cpu().numpy()), s
+    for s, row in zip(srcs, res[len(srcs):]):
+        assert np.array_equal(row, rt.bfs_levels(g, s)[0].cpu().numpy()), s
+    assert np.array_equal(lone, bound(src=7)["dist"].cpu().numpy())
+    assert launches > 0 and st["max_batch"] > 1
+
 # --- flash_attention ----------------------------------------------------------
 
 def qkv(bh, sq, skv, d, dtype, device, seed=0):

@@ -190,12 +190,11 @@ LITERALS = re.compile(r"(threshold_frac|direction|block_rows)=([^,)]+|\{[^}]*\})
 def test_generated_source_mirrors_reference(name, batch_sources):
     """Every bundled program compiles on both torch backends; the port's
     `cuda` source calls the kernel ops exactly where the reference's
-    `pallas` source does, and bakes in the same Schedule literals."""
+    `pallas` source does, and bakes in the same Schedule literals, in the
+    program and in its `__refresh` variant alike."""
     assert tc.bundled_programs() == rc.bundled_programs()
     ref = rc.compile_bundled(name, backend="pallas",
                              schedule=rc.Schedule(batch_sources=batch_sources)).source
-    # the reference's `__refresh` variant is not ported yet (ROADMAP item 8)
-    ref = re.split(r"\n(?=def \w+__refresh\()", ref)[0]
     sched = Schedule(batch_sources=batch_sources)
     src = tc.compile_bundled(name, backend="cuda", schedule=sched).source
     local = tc.compile_bundled(name, backend="local", schedule=sched).source
