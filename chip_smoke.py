@@ -139,22 +139,50 @@ graph (before the LM phases free it):
                GraphService with that store registers the graph: `sssp`
                must be listed as tuned and answer as the default does.
 
+Phase 15 runs last, after phase 10:
+
+ 15. lm-families — deepseek-moe-16b, zamba2-1.2b, xlstm-1.3b and
+               seamless-m4t-large-v2 at full width and depth (bf16, seeded
+               init), each built, checked and freed in turn: a prefill
+               through the kernel, second call timed (32,768 tokens;
+               xlstm cut to 4,096, its sLSTM being a per-token loop;
+               seamless 32,768 frame embeddings and 1,024 decoder tokens),
+               its flash launches 28 / 6 / 0 / 72 and its peak above held;
+               the first call's first flash call of each shape (BH, SQ,
+               SKV, D, causal) held against attention_ref in blocks of
+               1,024 query rows (phase 8's rules); moe and hybrid timed
+               once more with F.silu in place of layers.silu; every flash
+               call of a 2,048-token forward held the same way; two MoE
+               forwards bitwise equal; serving 4 x 32 + 16 tokens
+               (ServeEngine; encdec: decode_step through the kernel
+               against 4 x 2,048 encoded frames, its cross call at SQ = 1
+               held), the first new token equal to its decode chain's
+               argmax; then the same weights upcast to f32: kernel vs ref
+               at 2,048 tokens and the prefill vs the decode chain at
+               position 31 (MoE at capacity factor 16) within 1e-3. For
+               xlstm and seamless the bf16 forms of those two are held at
+               0.25, and their bf16 plain logits within 0.25 of their f32
+               plain ones; for deepseek and zamba2 they are printed.
+
 With --trace, phase 12 also traces one lone sssp query and one coalesced
-sweep (B = 32), and phase 13 one sssp refresh, in phase 7's format.
+sweep (B = 32), and phase 13 one sssp refresh, in phase 7's format, and
+phase 15 one prefill of each family (xlstm's at 512 tokens).
 
 The line before the last is {"kernels": [...]} (ell_spmv's two semirings,
 reported by the sweep that the main path runs, with the launches of
-phases 5, 11, 12 and 13, flash_attention.bf16 and tc_matmul.f32); the last line is {"ok": true,
+phases 5, 11, 12 and 13, flash_attention.bf16 with the launches of
+phases 9 and 15, and tc_matmul.f32); the last line is {"ok": true,
 "device": {...}}. Without a CUDA device the run fails; a `--device cpu`
-rehearsal runs phases 3, 5, 6 and 8 to 14 with the plain versions at smoke
-sizes (the LM's smoke config, a 256-token prefill, RMAT --scale for the
-graph phases, RMAT 8 for tc), prints no result line and exits 3: it is
-not a smoke run.
+rehearsal runs phases 3, 5, 6 and 8 to 15 with the plain versions at smoke
+sizes (the LMs' smoke configs, a 256-token prefill (128 in phase 15),
+RMAT --scale for the graph phases, RMAT 8 for tc), prints no result line
+and exits 3: it is not a smoke run.
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import json
 import os
 import re
@@ -1251,21 +1279,22 @@ FLASH_REL_RMS = 1e-2
 PLAIN_CHUNK = 1024
 
 
-def attention_ref_in_chunks(q, k, v, chunk):
-    """Causal attention_ref, one block of `chunk` query rows at a time
-    against the kv rows that block can see: the same function as one
-    call, with only [BH, chunk, <= SKV] f32 scores live at once. Each
-    block's causal offset SKV' - SQ' is its first row plus SKV - SQ."""
+def attention_ref_in_chunks(q, k, v, chunk, causal=True):
+    """attention_ref, one block of `chunk` query rows at a time against the
+    kv rows that block can see: the same function as one call, with only
+    [BH, chunk, <= SKV] f32 scores live at once. Causal: each block's
+    offset SKV' - SQ' is its first row plus SKV - SQ; otherwise every block
+    sees every kv row."""
     import torch
     from repro_torch.kernels.flash_attention.ref import attention_ref
     sq, skv = q.shape[1], k.shape[1]
-    if skv < sq:
+    if causal and skv < sq:
         raise ValueError(f"SKV={skv} < SQ={sq}: some rows see no kv row")
     out = torch.empty_like(q)
     for i in range(0, sq, chunk):
         j = min(i + chunk, sq)
-        end = j + skv - sq
-        out[:, i:j] = attention_ref(q[:, i:j], k[:, :end], v[:, :end], causal=True)
+        end = j + skv - sq if causal else skv
+        out[:, i:j] = attention_ref(q[:, i:j], k[:, :end], v[:, :end], causal=causal)
     return out
 
 
@@ -1471,6 +1500,422 @@ def lm_phase(seed, dev, on_card, seq, check_seq, trace):
                 "ms_per_decode_step"], **tr)))
     info.update(serve)
     return info
+
+
+# --------------------------------------------------------------------------
+# lm-families: the moe, hybrid, ssm and encdec families at full size
+# --------------------------------------------------------------------------
+
+# (config, prefill length on the card)
+FAMILY_RUNS = (("deepseek-moe-16b", 32768), ("zamba2-1.2b", 32768),
+               ("xlstm-1.3b", 4096), ("seamless-m4t-large-v2", 32768))
+# xlstm's 4,096 tokens (the reference's train_4k length): its sLSTM is a
+# recurrence over tokens, a Python loop of about a dozen launches per token
+# and layer here; 6 layers x 32,768 tokens would cost 2.4M launches
+XLSTM_CUT = "xlstm prefill cut to 4,096 tokens: the sLSTM runs one step per token"
+ENCDEC_DEC_TOKENS = 1024        # seamless: decoder tokens beside the frames
+FAMILY_CHECK = (2048, 1024)     # kernel vs ref: tokens (frames), decoder tokens
+# the same weights upcast to f32: two paths through 24 to 48 layers of f32
+# arithmetic in other orders (flash's online softmax against the
+# materialized one, the chunked SSD form against its recurrence) agree
+# within this on logits of std about 1 (PERF.md, "Findings")
+F32_LOGIT_ATOL = 1e-3
+# the families whose bf16 end-to-end figures are held at LM_LOGIT_ATOL, and
+# whose bf16 plain logits must lie within it of their f32 ones (NVIDIA H100
+# 80GB HBM3, 700 W: xlstm 0.1086, seamless 0.0512; PERF.md, "Findings").
+# A random-weight MoE's top-6 routing turns bf16's last bits into other
+# experts, layer after layer, and zamba2's bf16 noise grows through its 38
+# layers (5.2431, 1.8141): their bf16 figures are printed, and each flash
+# shape of their path is held against the plain version instead
+BF16_HELD_FAMILIES = ("ssm", "encdec")
+# xlstm's traced prefill: the profiler's post-processing of the sLSTM
+# loop's launches (about 300k at 4,096 tokens) outlasts the run itself
+XLSTM_TRACE_TOKENS = 512
+
+
+@contextlib.contextmanager
+def capacity_factor(model, cf):
+    """The same weights with another MoE capacity factor: a decode chain
+    routes B tokens per step, a prefill all of them, and capacity drops
+    depend on that count by design."""
+    import dataclasses
+    cfg = model.cfg
+    model.cfg = model.net.cfg = dataclasses.replace(cfg, moe_capacity_factor=cf)
+    try:
+        yield
+    finally:
+        model.cfg = model.net.cfg = cfg
+
+
+@contextlib.contextmanager
+def one_kernel_silu(model):
+    """The MoE and Mamba2 blocks with F.silu (one kernel) in place of
+    layers.silu (the reference's four ops, each rounded: five kernels),
+    to time what that rounding costs."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers, moe, ssm
+    mlps = [m for m in model.modules() if isinstance(m, layers.MLP) and m.act is layers.silu]
+    for m in mlps:
+        m.act = F.silu
+    moe.silu = ssm.silu = F.silu
+    try:
+        yield
+    finally:
+        moe.silu = ssm.silu = layers.silu
+        for m in mlps:
+            m.act = layers.silu
+
+
+@contextlib.contextmanager
+def each_flash_call_held(rows, chunk, first_of_each_shape=False):
+    """Inside, flash_attention calls of the model (through gqa_attention)
+    also run attention_ref on the same q, k, v in blocks of `chunk` query
+    rows: every call, or with `first_of_each_shape` the first call of each
+    (BH, SQ, SKV, D, causal, dtype). Each held call's shape and phase 8's
+    figures (flash_vs_plain) go to `rows`; see `held_calls_agree`."""
+    from repro_torch.kernels.flash_attention import ops
+    kernel, seen = ops.flash_attention, set()
+
+    def held(q, k, v, *, causal=True, **kw):
+        out = kernel(q, k, v, causal=causal, **kw)
+        key = (*q.shape, k.shape[1], causal, str(q.dtype))
+        if not (first_of_each_shape and key in seen):
+            seen.add(key)
+            want = attention_ref_in_chunks(q, k, v, chunk, causal)
+            err, excess, rel_rms = flash_vs_plain(out, want, chunk)
+            rows.append(dict(bh=q.shape[0], sq=q.shape[1], skv=k.shape[1], d=q.shape[2],
+                             causal=causal, dtype=str(q.dtype), max_abs_err=err,
+                             excess=excess, rel_rms=rel_rms))
+        return out
+    ops.flash_attention = held
+    try:
+        yield
+    finally:
+        ops.flash_attention = kernel
+
+
+def held_calls_agree(cfg, what, rows):
+    """Fails unless every held call meets phase 8's rules: |kernel - plain|
+    <= FLASH_RTOL·|plain| + FLASH_ATOL elementwise, and each block's rms
+    error within FLASH_REL_RMS of the plain block's rms."""
+    bad = [r for r in rows if not (r["excess"] <= FLASH_ATOL and r["rel_rms"] <= FLASH_REL_RMS)]
+    if bad:
+        fail(f"{cfg.name}: {what}: flash_attention disagrees with attention_ref: {bad[0]}")
+
+
+def flash_calls(cfg):
+    """flash_attention calls of one forward. At full size: moe one causal
+    D = 128 call per layer (28); hybrid one causal D = 64 call per
+    shared-attention site (layers 5, 11, ..., 35 of 38: 6); ssm none;
+    encdec 24 non-causal encoder calls, 24 causal decoder self-attention
+    calls and 24 cross-attention calls (72)."""
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_dec_layers
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return cfg.n_layers if cfg.family == "moe" else 0
+
+
+def family_batch(cfg, gen, dev, seq, dec_tokens):
+    """Seeded inputs: tokens [1, seq], or for encdec frame embeddings
+    [1, seq, d] (bf16, std 1) and decoder tokens [1, dec_tokens]."""
+    import torch
+    if cfg.family == "encdec":
+        return {"embeds": torch.randn((1, seq, cfg.d_model), generator=gen, device=dev)
+                .to(torch.bfloat16),
+                "tokens": torch.randint(0, cfg.vocab, (1, dec_tokens), generator=gen,
+                                        device=dev)}
+    return {"tokens": torch.randint(0, cfg.vocab, (1, seq), generator=gen, device=dev)}
+
+
+def head(batch, n, dec_n):
+    out = {"tokens": batch["tokens"][:, :dec_n if "embeds" in batch else n]}
+    if "embeds" in batch:
+        out["embeds"] = batch["embeds"][:, :n]
+    return out
+
+
+def greedy_encdec(model, cache, prompts, new_tokens):
+    """ServeEngine.generate's loop for encdec: the prompt through
+    decode_step (impl="kernel": the cross-attention at SQ = 1), then greedy
+    tokens. Returns (tokens [B, S + new], decode_step calls, the logits of
+    the prompt's last step)."""
+    import torch
+    s = prompts.shape[1]
+    logits, steps = None, 0
+    for i in range(s):
+        logits, cache = model.decode_step(prompts[:, i:i + 1], cache, i, impl="kernel")
+        steps += 1
+    last_prompt = logits
+    out, cur = [prompts], torch.argmax(logits, dim=-1)[:, None]
+    for j in range(new_tokens):
+        out.append(cur)
+        if j == new_tokens - 1:
+            break
+        logits, cache = model.decode_step(cur, cache, s + j, impl="kernel")
+        steps += 1
+        cur = torch.argmax(logits, dim=-1)[:, None]
+    return torch.cat(out, dim=1), steps, last_prompt
+
+
+def prefill_and_chain(model, cfg, pt, enc_out):
+    """The prefill forward's last logits (through the kernel) and the
+    decode chain's at position 31, for the same 4 prompts; MoE at capacity
+    factor 16."""
+    if cfg.family == "encdec":
+        cache = model.init_cache(4, 64, enc_len=enc_out.shape[1])
+        cache["enc_out"] = enc_out
+        _, _, ld = greedy_encdec(model, cache, pt, 1)
+        return model.net.decode_train(pt, enc_out, impl="kernel", last_only=True)[:, 0], ld
+    with capacity_factor(model, 16.0 if cfg.family == "moe" else cfg.moe_capacity_factor):
+        lf, _ = model({"tokens": pt}, impl="kernel", last_only=True)
+        cache = model.init_cache(4, 64)
+        for i in range(32):
+            ld, cache = model.decode_step(pt[:, i:i + 1], cache, i)
+    return lf[:, 0], ld
+
+
+def family_serve(model, cfg, seed, dev, on_card, enc_len, chunk):
+    """4 seeded prompts of 32 tokens, 16 new each: ServeEngine for the token
+    families, the decode_step loop against `enc_len` encoded frames for
+    encdec (the warm-up's cross call at SQ = 1 held against the plain
+    version); the first new token against the argmax of the engine's own
+    decode chain. Returns (the serve record, the prompts, encdec's encoder
+    output)."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.serve import ServeEngine
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab, (4, 32)).astype(np.int32)
+    pt = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+    rec, enc_out = dict(prompts=list(prompts.shape), new_tokens=16), None
+    if cfg.family == "encdec":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 1)
+        frames = torch.randn((4, enc_len, cfg.d_model), generator=gen, device=dev).to(
+            model.net.embed.dtype)
+        enc_out = model.net.encode(frames, impl="kernel")
+
+        def serve():
+            cache = model.init_cache(4, 64, enc_len=enc_len)
+            cache["enc_out"] = enc_out
+            return greedy_encdec(model, cache, pt, 16)
+        held_rows = []
+        with each_flash_call_held(held_rows, chunk, first_of_each_shape=True):
+            serve()                                 # warm-up, its cross call held
+        held_calls_agree(cfg, "decode_step", held_rows)
+        rec["flash_shapes_held"] = held_rows
+        sync()
+        flash_attention.launches = 0
+        t = time.perf_counter()
+        toks, steps, ld = serve()
+        sync()
+        serve_s = time.perf_counter() - t
+        rec.update(enc_len=enc_len, flash_launches=flash_attention.launches)
+        if on_card and flash_attention.launches != steps * cfg.n_dec_layers:
+            fail(f"{cfg.name}: {steps} decode steps launched flash_attention "
+                 f"{flash_attention.launches} times, not {steps * cfg.n_dec_layers}")
+        tokens = toks.cpu().numpy()
+    else:
+        engine = ServeEngine(model, max_len=64, batch_size=4)
+        engine.generate(prompts, new_tokens=2)      # warm-up
+        sync()
+        t = time.perf_counter()
+        tokens = engine.generate(prompts, new_tokens=16).tokens
+        sync()
+        serve_s = time.perf_counter() - t
+        steps = prompts.shape[1] + 16 - 1
+        cache = model.init_cache(4, 64)
+        for i in range(32):
+            ld, cache = model.decode_step(pt[:, i:i + 1], cache, i)
+    if tokens.shape != (4, 48) or not np.array_equal(tokens[:, :32], prompts):
+        fail(f"{cfg.name}: serving returned {tokens.shape} or changed the prompts")
+    rec.update(serve_s=serve_s, decode_steps=steps, ms_per_decode_step=1e3 * serve_s / steps,
+               first_token_equal=bool(np.array_equal(tokens[:, 32],
+                                                     ld.argmax(-1).cpu().numpy())))
+    if not rec["first_token_equal"]:
+        fail(f"{cfg.name}: the first new token differs from its decode chain's argmax")
+    return rec, pt, enc_out
+
+
+def hold_logits(cfg, what, got, want, atol, held):
+    """max |got - want| (and argmax agreement where the top-2 gap of
+    `want` exceeds atol) as a record; fails if `held` and it is over."""
+    err = float((got - want).abs().max())
+    gap = top2_gap(want)
+    same = got.argmax(-1) == want.argmax(-1)
+    rec = dict(max_abs=err, atol=atol, held=held,
+               argmax_equal_where_clear=bool(same[gap > atol].all()))
+    if held and not (err <= atol and rec["argmax_equal_where_clear"]):
+        fail(f"{cfg.name}: {what}: max abs diff {err} > {atol} or another argmax where the "
+             "top-2 gap is clear")
+    return rec
+
+
+def lm_families_phase(seed, dev, on_card, trace):
+    """Each family of FAMILY_RUNS at full width and depth (smoke size on
+    the CPU), bf16, seeded init, built and freed in turn: the prefill
+    through the kernel (second call timed, its flash launches counted; the
+    first call holds the first flash call of each shape against
+    attention_ref), MoE and Mamba2 prefill once more with F.silu, every
+    flash call of a 2,048-token forward against attention_ref, MoE
+    repeatability, serving; then the same weights upcast to f32 for the
+    end-to-end checks (kernel vs ref, prefill vs decode chain). The bf16
+    end-to-end figures are held at LM_LOGIT_ATOL for BF16_HELD_FAMILIES,
+    and printed for the others."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.models import build
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    chunk = PLAIN_CHUNK if on_card else 64
+    print(f"  {XLSTM_CUT}")
+    out = []
+    for name, card_seq in FAMILY_RUNS:
+        cfg = ARCHS[name] if on_card else ARCHS[name].smoke()
+        want_launches = flash_calls(cfg)
+        seq = card_seq if on_card else 128
+        dec_tokens = ENCDEC_DEC_TOKENS if on_card else 64
+        check_seq, check_dec = FAMILY_CHECK if on_card else (64, 32)
+        if on_card:
+            gc.collect()
+            torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() if on_card else 0
+        t = t_family = time.perf_counter()
+        model = build(cfg, device=dev, seed=seed)
+        sync()
+        stages = {}                     # wall seconds of each step of the phase
+        info = dict(model=cfg.name, family=cfg.family,
+                    parameters=sum(p.numel() for p in model.parameters()),
+                    layers=cfg.n_layers, d_model=cfg.d_model, build_s=time.perf_counter() - t,
+                    seq=seq, weights_gb=sum(p.numel() * p.element_size()
+                                            for p in model.parameters()) / 1e9)
+        if cfg.family == "encdec":
+            info["decoder_tokens"] = dec_tokens
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        batch = family_batch(cfg, gen, dev, seq, dec_tokens)
+        small = head(batch, check_seq, check_dec)
+        with torch.inference_mode():
+            # 1. prefill through the kernel, the first call's flash shapes
+            #    held against the plain version, the second call timed
+            shapes = []
+            with each_flash_call_held(shapes, chunk, first_of_each_shape=True):
+                model(batch, impl="kernel", last_only=True)
+            sync()
+            held_calls_agree(cfg, "prefill", shapes)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            flash_attention.launches = 0
+            t = time.perf_counter()
+            logits, aux = model(batch, impl="kernel", last_only=True)
+            sync()
+            secs = time.perf_counter() - t
+            launches = flash_attention.launches
+            if tuple(logits.shape) != (1, 1, cfg.vocab_padded) or \
+                    not bool(torch.isfinite(logits).all()) or not bool(torch.isfinite(aux)):
+                fail(f"{cfg.name}: prefill logits {tuple(logits.shape)} or non-finite values")
+            if on_card and launches != want_launches:
+                fail(f"{cfg.name}: the prefill launched flash_attention {launches} times, "
+                     f"not {want_launches}")
+            n_tok = seq + (dec_tokens if cfg.family == "encdec" else 0)
+            info.update(prefill_s=secs, prefill_tokens_per_s=n_tok / secs,
+                        flash_launches=launches, aux=float(aux), flash_shapes_held=shapes,
+                        peak_gb=(torch.cuda.max_memory_allocated() - held) / 1e9
+                        if on_card else None, held_before_gb=held / 1e9 if on_card else None)
+            if cfg.family in ("moe", "hybrid"):
+                with one_kernel_silu(model):
+                    for _ in range(2):      # the second call timed
+                        t = time.perf_counter()
+                        model(batch, impl="kernel", last_only=True)
+                        sync()
+                info["prefill_s_with_F_silu"] = time.perf_counter() - t
+            stages["prefill"] = time.perf_counter() - t_family
+            if trace:
+                t = time.perf_counter()
+                traced, untraced_ms = batch, secs * 1e3
+                if cfg.family == "ssm":
+                    traced = head(batch, XLSTM_TRACE_TOKENS, XLSTM_TRACE_TOKENS)
+                    model(traced, impl="kernel", last_only=True)    # warm-up at that length
+                    sync()
+                    t_short = time.perf_counter()
+                    model(traced, impl="kernel", last_only=True)
+                    sync()
+                    untraced_ms = 1e3 * (time.perf_counter() - t_short)
+                tr = trace_run(lambda: model(traced, impl="kernel", last_only=True))
+                tr.pop("kernels")
+                print("  " + json.dumps(dict(call=f"{cfg.name} prefill",
+                                             tokens=traced["tokens"].shape[1],
+                                             untraced_ms=untraced_ms, **tr)))
+                stages["trace"] = time.perf_counter() - t
+            del batch, logits
+            t = time.perf_counter()
+
+            # 2. every flash call of a check_seq forward against the plain
+            #    version on the same q, k, v; the forward against impl="ref"
+            calls = []
+            with each_flash_call_held(calls, chunk):
+                lk, _ = model(small, impl="kernel", last_only=True)
+            lr, _ = model(small, impl="ref", last_only=True)
+            worst = max(calls, key=lambda r: r["excess"], default=None)
+            info.update(check_seq=check_seq, flash_calls_held=len(calls),
+                        flash_worst_call=worst, flash_rtol=FLASH_RTOL, flash_atol=FLASH_ATOL,
+                        flash_rel_rms=FLASH_REL_RMS)
+            if cfg.family == "encdec":
+                info["check_decoder_tokens"] = check_dec
+            if len(calls) != want_launches:
+                fail(f"{cfg.name}: {len(calls)} flash calls held, not {want_launches}")
+            held_calls_agree(cfg, f"a {check_seq}-token forward", calls)
+            # 3. MoE: two forwards bitwise equal (the combine has no atomics)
+            if cfg.family == "moe":
+                l1, a1 = model(small, impl="kernel")
+                l2, a2 = model(small, impl="kernel")
+                info["repeat_bitwise_equal"] = bool(torch.equal(l1, l2) and torch.equal(a1, a2))
+                del l1, l2
+                if not info["repeat_bitwise_equal"]:
+                    fail(f"{cfg.name}: two forwards on the same tokens differ")
+
+            stages["checks"] = time.perf_counter() - t
+
+            # 4. serve, bf16; the prefill against the decode chain
+            t = time.perf_counter()
+            serve, pt, enc_out = family_serve(model, cfg, seed, dev, on_card, check_seq, chunk)
+            lf, ld = prefill_and_chain(model, cfg, pt, enc_out)
+            stages["serve"] = time.perf_counter() - t
+
+            # 5. the same weights in f32: the end-to-end checks
+            t = time.perf_counter()
+            model.float()
+            model.cfg = model.net.cfg = dataclasses.replace(cfg, dtype="float32")
+            lk32, _ = model(small, impl="kernel", last_only=True)
+            lr32, _ = model(small, impl="ref", last_only=True)
+            lf32, ld32 = prefill_and_chain(model, model.cfg, pt,
+                                           None if enc_out is None else enc_out.float())
+            sync()
+            stages["f32"] = time.perf_counter() - t
+            bf16_off = float((lr - lr32).abs().max())
+            held16 = cfg.family in BF16_HELD_FAMILIES
+            info.update(
+                bf16_ref_vs_f32_ref_max_abs=bf16_off, logit_std=float(lr32.std()),
+                kernel_vs_ref_f32=hold_logits(cfg, "kernel vs ref (f32)", lk32[:, 0],
+                                              lr32[:, 0], F32_LOGIT_ATOL, True),
+                kernel_vs_ref_bf16=hold_logits(cfg, "kernel vs ref (bf16)", lk[:, 0], lr[:, 0],
+                                               LM_LOGIT_ATOL, held16),
+                prefill_vs_decode_f32=hold_logits(cfg, "prefill vs decode chain (f32)", ld32,
+                                                  lf32, F32_LOGIT_ATOL, True),
+                prefill_vs_decode_bf16=hold_logits(cfg, "prefill vs decode chain (bf16)", ld,
+                                                   lf, LM_LOGIT_ATOL, held16),
+                serve=serve, stage_s=stages)
+            print("  " + json.dumps(info))
+            if held16 and not bf16_off <= LM_LOGIT_ATOL:
+                fail(f"{cfg.name}: bf16 plain lies {bf16_off} from f32 plain, over "
+                     f"{LM_LOGIT_ATOL}")
+        out.append(info)
+        del model, small, lk, lr, lf, ld, lk32, lr32, lf32, ld32, enc_out
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1742,6 +2187,13 @@ def main(argv=None):
     phase("tc", t0, "count_triangles_dense == scipy == tc_matmul_ref; DSL tc == scipy == "
           "count_triangles_dense on the symmetrised graph")
 
+    # 15. lm-families
+    t0 = time.perf_counter()
+    families = lm_families_phase(args.seed, dev, on_card, on_card and args.trace)
+    phase("lm-families", t0, "; ".join(
+        f"{f['model']} prefill {f['seq']} {f['prefill_s']:.3f} s, "
+        f"{f['serve']['ms_per_decode_step']:.3f} ms per decode step" for f in families))
+
     if not on_card:
         print("rehearsal finished: plain versions on the CPU — not a smoke run")
         sys.exit(3)
@@ -1764,7 +2216,8 @@ def main(argv=None):
             ms=sw["ms"], plain_ms=sw["plain_ms"], bound_ms=sw["bound_ms"],
             bound_by=sw["bound_by"], library_ms=sw["library_ms"],
             bound_l2_ms=sw["bound_l2_ms"]))
-    flash["launches"] = lm["flash_launches"]
+    flash["launches"] = lm["flash_launches"] + sum(
+        f["flash_launches"] + f["serve"].get("flash_launches", 0) for f in families)
     kernels += [flash, tc]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

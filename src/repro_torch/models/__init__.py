@@ -1,8 +1,10 @@
-"""The LM substrate of the port: the dense decoder family (qwen2.5-3b and
-its kin), prefilled through the flash-attention kernel and decoded through
-a static KV cache. The moe, hybrid, ssm and encdec families are not ported
-yet (ROADMAP queue 1, item 12)."""
-from . import attention, layers, transformer, weights, zoo
+"""The LM substrate of the port: every family of `configs.ARCHS` — dense,
+moe, hybrid (Mamba2 + shared attention), ssm (xLSTM) and encdec —
+prefilled through the flash-attention kernel where it attends, and decoded
+through static caches. Training is not ported yet (ROADMAP queue 1,
+item 12)."""
+from . import attention, encdec, layers, moe, ssm, transformer, weights, zoo
 from .zoo import Model, build
 
-__all__ = ["attention", "layers", "transformer", "weights", "zoo", "Model", "build"]
+__all__ = ["attention", "encdec", "layers", "moe", "ssm", "transformer", "weights", "zoo",
+           "Model", "build"]

@@ -78,13 +78,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 # --- SwiGLU MLP ------------------------------------------------------------------
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.silu as the reference writes it, x · (1 / (1 + exp(-x))), one
+    op at a time, so bf16 rounds after each op as the reference's ops do.
+    F.silu rounds once and lands one bf16 ulp away on many inputs: enough
+    to flip a near-tied MoE routing choice a layer later, and to move a
+    Mamba2 stack's bf16 logits past the parity tests' bound. The MoE and
+    Mamba2 blocks use this; the dense MLPs keep F.silu (one kernel where
+    this is five)."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
 class MLP(nn.Module):
-    def __init__(self, d, ff, dtype, *, generator: torch.Generator):
+    """SwiGLU: act(x @ w_gate) * (x @ w_up) @ w_down; `act` F.silu or the
+    reference-rounded `silu`."""
+
+    def __init__(self, d, ff, dtype, *, generator: torch.Generator, act=F.silu):
         super().__init__()
+        self.act = act
         self.w_gate = nn.Parameter(dense_init((d, ff), dtype, generator=generator))
         self.w_up = nn.Parameter(dense_init((d, ff), dtype, generator=generator))
         self.w_down = nn.Parameter(dense_init((ff, d), dtype, generator=generator))
 
     def forward(self, x):
-        h = F.silu(x @ self.w_gate) * (x @ self.w_up)
+        h = self.act(x @ self.w_gate) * (x @ self.w_up)
         return h @ self.w_down

@@ -1,6 +1,6 @@
-"""Model assembly: the dense decoder-only LM.
+"""Model assembly: decoder-only LM (dense / MoE / hybrid / xLSTM stacks).
 
-PyTorch counterpart of `repro.models.transformer` for the dense family:
+PyTorch counterpart of `repro.models.transformer`:
 
     net = Transformer(cfg, generator=...)          the reference's init(key, cfg)
     logits, aux = net(tokens, impl=..., last_only=...)   prefill / training path
@@ -8,9 +8,12 @@ PyTorch counterpart of `repro.models.transformer` for the dense family:
     logits, cache = net.decode_step(tokens, cache, pos)
 
 The reference's `jax.lax.scan` over `[L]`-stacked layer parameters becomes
-an `nn.ModuleList` walked in Python. `remat` is accepted for the
-reference's signature and has no effect: nothing here trains yet. The moe,
-hybrid and ssm families are not ported (ROADMAP queue 1, item 12).
+an `nn.ModuleList` walked in Python. Hybrid stacks (zamba2) run the Mamba
+backbone and apply the ONE shared attention block after every
+`attn_every`-th layer, each call site with its own KV cache. xLSTM stacks
+run every mLSTM layer, then every sLSTM layer, as the reference does.
+`remat` is accepted for the reference's signature and has no effect:
+nothing here trains yet.
 """
 from __future__ import annotations
 
@@ -19,8 +22,11 @@ from torch import nn
 
 from .attention import Attention, attention_decode, init_kv_cache
 from .layers import MLP, RMSNorm, dense_init, embed_init
+from .moe import MoE
+from .ssm import (MLSTM, SLSTM, Mamba2, mamba2_decode, mamba2_init_state, mlstm_decode,
+                  mlstm_init_state, slstm_decode, slstm_init_state)
 
-PORTED_FAMILIES = ("dense",)
+FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 
 def _dt(cfg) -> torch.dtype:
@@ -28,78 +34,158 @@ def _dt(cfg) -> torch.dtype:
 
 
 class DenseLayer(nn.Module):
+    """ln1, attn, ln2 and the FFN: `moe` in the moe family, `mlp` else."""
+
     def __init__(self, cfg, dtype, *, generator: torch.Generator):
         super().__init__()
         dev = generator.device
         self.ln1 = RMSNorm(cfg.d_model, dtype, dev)
         self.attn = Attention(cfg, dtype, generator=generator)
         self.ln2 = RMSNorm(cfg.d_model, dtype, dev)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, generator=generator)
+        if cfg.family == "moe":
+            self.moe = MoE(cfg, dtype, generator=generator)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, generator=generator)
+
+    def ffn(self, x, cfg):
+        """The FFN and its aux loss (0.0 without experts)."""
+        if cfg.family == "moe":
+            return self.moe(x, cfg)
+        return self.mlp(x), 0.0
 
     def forward(self, x, positions, impl, cfg):
+        """Returns (x after the layer, the FFN's aux loss)."""
         scale = cfg.scale_depth / (cfg.n_layers ** 0.5) if cfg.scale_depth else 1.0
         h = self.attn(self.ln1(x, cfg.norm_eps), positions, causal=True, impl=impl)
         x = x + h * scale
-        h = self.mlp(self.ln2(x, cfg.norm_eps))
-        return x + h * scale
+        h, aux = self.ffn(self.ln2(x, cfg.norm_eps), cfg)
+        return x + h * scale, aux
+
+    def decode(self, x, lc, pos, cfg):
+        """One token through the layer, its KV cache `lc` written in place.
+        As in the reference, the residual adds carry no `scale_depth`."""
+        h, _ = attention_decode(self.attn, self.ln1(x, cfg.norm_eps), lc, pos)
+        x = x + h
+        h, _ = self.ffn(self.ln2(x, cfg.norm_eps), cfg)
+        return x + h
+
+
+def _n_slstm(cfg) -> int:
+    return cfg.n_layers // cfg.slstm_every if cfg.slstm_every else 0
+
+
+def _attn_sites(cfg) -> list[int]:
+    """The hybrid layers after which the shared attention block runs."""
+    every = cfg.attn_every or (cfg.n_layers + 1)
+    return [i for i in range(cfg.n_layers) if i % every == every - 1]
 
 
 class Transformer(nn.Module):
-    """embed [V, d], ln_f, layers (ModuleList of DenseLayer), and unembed
-    [d, V] unless the embeddings are tied. The parameters land on the
-    generator's device."""
+    """embed [V, d], ln_f, unembed [d, V] unless the embeddings are tied,
+    and the family's stack:
+      dense, moe — layers (ModuleList of DenseLayer);
+      hybrid     — layers (ModuleList of Mamba2) and shared_attn (a DenseLayer);
+      ssm        — mlstm (ModuleList of MLSTM) and slstm (ModuleList of SLSTM).
+    The parameters land on the generator's device."""
 
     def __init__(self, cfg, *, generator: torch.Generator):
         super().__init__()
-        if cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-                "(ROADMAP queue 1, item 12: LM substrate)")
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"{cfg.name}: Transformer builds the families {FAMILIES}, "
+                             f"not {cfg.family!r}")
         self.cfg = cfg
         dtype = _dt(cfg)
-        self.embed = nn.Parameter(embed_init(cfg.vocab_padded, cfg.d_model, dtype,
-                                             generator=generator))
-        self.ln_f = RMSNorm(cfg.d_model, dtype, generator.device)
+        g = generator
+        self.embed = nn.Parameter(embed_init(cfg.vocab_padded, cfg.d_model, dtype, generator=g))
+        self.ln_f = RMSNorm(cfg.d_model, dtype, g.device)
         if not cfg.tie_embeddings:
             self.unembed = nn.Parameter(dense_init((cfg.d_model, cfg.vocab_padded), dtype,
-                                                   generator=generator))
-        self.layers = nn.ModuleList(DenseLayer(cfg, dtype, generator=generator)
-                                    for _ in range(cfg.n_layers))
+                                                   generator=g))
+        if cfg.family in ("dense", "moe"):
+            self.layers = nn.ModuleList(DenseLayer(cfg, dtype, generator=g)
+                                        for _ in range(cfg.n_layers))
+        elif cfg.family == "hybrid":       # zamba2: mamba backbone + shared attn
+            self.layers = nn.ModuleList(Mamba2(cfg, dtype, generator=g)
+                                        for _ in range(cfg.n_layers))
+            self.shared_attn = DenseLayer(cfg, dtype, generator=g)
+        else:                              # xlstm: mLSTM stack + sLSTM blocks
+            n_s = _n_slstm(cfg)
+            self.mlstm = nn.ModuleList(MLSTM(cfg, dtype, generator=g)
+                                       for _ in range(cfg.n_layers - n_s))
+            self.slstm = nn.ModuleList(SLSTM(cfg, dtype, generator=g) for _ in range(n_s))
 
     def _w_out(self):
         return self.embed.T if self.cfg.tie_embeddings else self.unembed
 
     def forward(self, tokens, *, impl="ref", remat: bool = True, last_only: bool = False):
         """tokens: [B, S] integer. Returns (logits [B, S, V] f32 — [B, 1, V]
-        with last_only —, aux 0.0)."""
+        with last_only —, aux: the MoE layers' summed load-balance loss, a
+        0-d f32 tensor, 0 for the other families)."""
         cfg = self.cfg
         x = self.embed[tokens] * cfg.scale_emb
         b, s = x.shape[:2]
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
-        for layer in self.layers:
-            x = layer(x, positions, impl, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.family in ("dense", "moe"):
+            for layer in self.layers:
+                x, a = layer(x, positions, impl, cfg)
+                aux = aux + a
+        elif cfg.family == "hybrid":
+            sites = set(_attn_sites(cfg))
+            for i, layer in enumerate(self.layers):
+                x = x + layer(x, cfg)
+                if i in sites:
+                    x, _ = self.shared_attn(x, positions, impl, cfg)
+        else:
+            for layer in self.mlstm:
+                x = x + layer(x, cfg)
+            for layer in self.slstm:
+                x = x + layer(x, cfg)
         x = self.ln_f(x, cfg.norm_eps)
         if last_only:      # prefill: only the next-token logits are needed
             x = x[:, -1:]
-        logits = (x @ self._w_out()).float()
-        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+        return (x @ self._w_out()).float(), aux
 
     def init_cache(self, batch: int, max_len: int) -> dict:
-        """{"kv": one `init_kv_cache` dict per layer}."""
-        dev = self.embed.device
-        return {"kv": [init_kv_cache(self.cfg, batch, max_len, _dt(self.cfg), dev)
-                       for _ in self.layers]}
+        """dense, moe: {"kv": one `init_kv_cache` dict per layer};
+        hybrid: {"ssm": one Mamba2 state per layer, "kv": one KV cache per
+        shared-attention call site (at least one)};
+        ssm: {"mlstm": one state per mLSTM layer, "slstm": one (c, n, m)
+        state per sLSTM layer}."""
+        cfg, dev, dtype = self.cfg, self.embed.device, _dt(self.cfg)
+
+        def kv(n):
+            return [init_kv_cache(cfg, batch, max_len, dtype, dev) for _ in range(n)]
+
+        if cfg.family in ("dense", "moe"):
+            return {"kv": kv(cfg.n_layers)}
+        if cfg.family == "hybrid":
+            return {"ssm": [mamba2_init_state(cfg, batch, dtype, dev) for _ in self.layers],
+                    "kv": kv(max(len(_attn_sites(cfg)), 1))}
+        return {"mlstm": [mlstm_init_state(cfg, batch, dev) for _ in self.mlstm],
+                "slstm": [slstm_init_state(cfg, batch, dev) for _ in self.slstm]}
 
     def decode_step(self, tokens, cache: dict, pos: int):
         """tokens: [B, 1]; pos: the position. Returns (logits [B, V] f32,
-        cache), the cache updated in place. As in the reference, the residual
-        adds carry no `scale_depth` factor here."""
+        cache), the cache updated in place."""
         cfg = self.cfg
         x = self.embed[tokens] * cfg.scale_emb
-        for layer, lc in zip(self.layers, cache["kv"]):
-            h, _ = attention_decode(layer.attn, layer.ln1(x, cfg.norm_eps), lc, pos)
-            x = x + h
-            x = x + layer.mlp(layer.ln2(x, cfg.norm_eps))
+        if cfg.family in ("dense", "moe"):
+            for layer, lc in zip(self.layers, cache["kv"]):
+                x = layer.decode(x, lc, pos, cfg)
+        elif cfg.family == "hybrid":
+            sites = _attn_sites(cfg)
+            for i, layer in enumerate(self.layers):
+                h, cache["ssm"][i] = mamba2_decode(layer, cfg, x, cache["ssm"][i])
+                x = x + h
+                if i in sites:
+                    x = self.shared_attn.decode(x, cache["kv"][sites.index(i)], pos, cfg)
+        else:
+            for i, layer in enumerate(self.mlstm):
+                h, cache["mlstm"][i] = mlstm_decode(layer, cfg, x, cache["mlstm"][i])
+                x = x + h
+            for i, layer in enumerate(self.slstm):
+                h, cache["slstm"][i] = slstm_decode(layer, cfg, x, cache["slstm"][i])
+                x = x + h
         x = self.ln_f(x, cfg.norm_eps)
         return (x[:, 0] @ self._w_out()).float(), cache
-

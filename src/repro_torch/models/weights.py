@@ -1,8 +1,9 @@
 """Carry a parameter tree of the JAX reference over into the port's model.
 
 The reference keeps its parameters as nested dicts of arrays, with the
-per-layer leaves stacked along a leading `[L]` axis under "layers"; the
-port keeps the same `[in, out]` weight layout, so each leaf is a copy.
+per-layer leaves of each layer stack stacked along a leading `[L]` axis
+(`STACKED`; the hybrid family's `shared_attn` is one layer, unstacked);
+the port keeps the same `[in, out]` weight layout, so each leaf is a copy.
 Used by the parity tests; nothing on the card's path needs it.
 """
 from __future__ import annotations
@@ -11,6 +12,9 @@ import numpy as np
 import torch
 
 from .zoo import Model, build
+
+# the reference's layer stacks: groups whose leaves carry a leading [L] axis
+STACKED = ("layers", "mlstm", "slstm", "enc_layers", "dec_layers")
 
 
 def _flatten(tree, prefix=""):
@@ -40,9 +44,9 @@ def from_reference(arrays: dict, cfg, device=None) -> Model:
     with torch.no_grad():
         for name, leaf in _flatten(arrays):
             t = _tensor(leaf)
-            if name.startswith("layers."):
-                rest = name[len("layers."):]
-                targets = [(f"layers.{i}.{rest}", t[i]) for i in range(t.shape[0])]
+            group, _, rest = name.partition(".")
+            if group in STACKED:
+                targets = [(f"{group}.{i}.{rest}", t[i]) for i in range(t.shape[0])]
             else:
                 targets = [(name, t)]
             for pname, val in targets:

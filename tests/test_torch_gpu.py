@@ -543,3 +543,79 @@ def test_lm_kernel_path_matches_plain_path_on_the_card(cuda):
         assert flash_attention.launches == before + cfg.n_layers
         want, _ = m({"tokens": toks}, impl="ref")
     torch.testing.assert_close(got[:, 0], want[:, -1], rtol=0, atol=1e-4)
+
+
+# (config, flash_attention launches per forward at smoke size)
+FAMILY_LAUNCHES = [("deepseek-moe-16b", 2), ("zamba2-1.2b", 1), ("xlstm-1.3b", 0),
+                   ("seamless-m4t-large-v2", 6)]
+
+
+def family_batch(cfg, device):
+    gen = torch.Generator(device=device).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 64), generator=gen, device=device)}
+    if cfg.family == "encdec":
+        batch["embeds"] = torch.randn((2, 128, cfg.d_model), generator=gen, device=device)
+    return batch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,launches", FAMILY_LAUNCHES)
+def test_lm_family_kernel_path_matches_plain_path_on_the_card(cuda, name, launches):
+    """moe, hybrid, ssm and encdec at smoke size in f32: the forward through
+    the kernel (every attention call launches it: encdec's encoder,
+    decoder self- and cross-attention) equals impl="ref"."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    cfg = dataclasses.replace(ARCHS[name].smoke(), dtype="float32")
+    m = build(cfg, device=cuda, seed=0)
+    batch = family_batch(cfg, cuda)
+    with torch.inference_mode():
+        before = flash_attention.launches
+        got, aux = m(batch, impl="kernel")
+        assert flash_attention.launches == before + launches
+        want, want_aux = m(batch, impl="ref")
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    torch.testing.assert_close(aux, want_aux, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.gpu
+def test_moe_forward_is_bitwise_repeatable_on_the_card(cuda):
+    """Two bf16 MoE forwards on the same tokens are bitwise equal: the
+    combine sums each token's k slots in a fixed order, with no atomics;
+    at capacity factor 0.25 tokens drop, and the same ones in both."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    for cf in (1.25, 0.25):
+        cfg = dataclasses.replace(ARCHS["deepseek-moe-16b"].smoke(), moe_capacity_factor=cf)
+        m = build(cfg, device=cuda, seed=0)
+        batch = family_batch(cfg, cuda)
+        with torch.inference_mode():
+            a, aux_a = m(batch, impl="kernel")
+            b, aux_b = m(batch, impl="kernel")
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+
+
+@pytest.mark.gpu
+def test_encdec_decode_step_cross_attends_through_the_kernel(cuda):
+    """encdec's decode_step at SQ = 1 against 128 encoded frames launches
+    the kernel once per decoder layer and equals impl="ref"."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    cfg = dataclasses.replace(ARCHS["seamless-m4t-large-v2"].smoke(), dtype="float32")
+    m = build(cfg, device=cuda, seed=0)
+    batch = family_batch(cfg, cuda)
+    with torch.inference_mode():
+        caches = [m.init_cache(2, 8, enc_len=128) for _ in range(2)]
+        for c in caches:
+            c["enc_out"] = m.net.encode(batch["embeds"], impl="ref")
+        for i in range(4):
+            tok = batch["tokens"][:, i:i + 1]
+            before = flash_attention.launches
+            got, _ = m.decode_step(tok, caches[0], i, impl="kernel")
+            assert flash_attention.launches == before + cfg.n_dec_layers
+            want, _ = m.decode_step(tok, caches[1], i, impl="ref")
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-4)

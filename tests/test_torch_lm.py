@@ -145,11 +145,32 @@ def test_build_is_seeded_and_defaults_to_the_card():
             build(cfg)
 
 
-@pytest.mark.parametrize("name", ["deepseek-moe-16b", "zamba2-1.2b", "xlstm-1.3b",
-                                  "seamless-m4t-large-v2"])
-def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build(configs.ARCHS[name].smoke(), device="cpu")
+def meta_build(cfg):
+    """build(cfg) with every random draw on the meta device: the shapes of
+    a full-size model, with nothing of that size allocated."""
+    from unittest import mock
+    meta_randn = lambda shape, **kw: torch.empty(shape, device="meta")  # noqa: E731
+    with mock.patch.object(torch, "randn", meta_randn):
+        return build(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("name", list(configs.ARCHS))
+def test_every_config_builds(name):
+    """Every config of configs.ARCHS builds on the CPU at smoke size and
+    runs a forward; at full size the port holds exactly as many parameters
+    as the reference's init (jax.eval_shape: shapes only)."""
+    cfg = configs.ARCHS[name]
+    m = build(cfg.smoke(), device="cpu")
+    batch = {"tokens": torch.from_numpy(tokens((1, 8))).long()}
+    if cfg.family == "encdec":
+        batch["embeds"] = torch.zeros((1, 16, cfg.smoke().d_model))
+    with torch.inference_mode():
+        logits, _ = m(batch, impl="kernel", last_only=True)
+    assert tuple(logits.shape) == (1, 1, cfg.smoke().vocab_padded)
+    assert bool(torch.isfinite(logits).all())
+    shapes = jax.eval_shape(ref_build(ref_configs.ARCHS[name]).init, jax.random.PRNGKey(0))
+    want = sum(int(np.prod(leaf.shape)) for leaf in jax.tree.leaves(shapes))
+    assert sum(p.numel() for p in meta_build(cfg).parameters()) == want
 
 
 def test_carry_over_rejects_a_tree_that_does_not_fit(pair):
@@ -164,11 +185,7 @@ def test_full_size_parameter_count():
     """qwen2.5-3b at full width and depth holds 3,086,200,832 parameters,
     77,076,992 per layer (shapes only: the random draws land on the meta
     device, so nothing of that size is allocated)."""
-    from unittest import mock
-    cfg = configs.ARCHS["qwen2.5-3b"]
-    meta_randn = lambda shape, **kw: torch.empty(shape, device="meta")  # noqa: E731
-    with mock.patch.object(torch, "randn", meta_randn):
-        m = build(cfg, device="cpu")
+    m = meta_build(configs.ARCHS["qwen2.5-3b"])
     assert sum(p.numel() for p in m.parameters()) == 3_086_200_832
     assert sum(p.numel() for p in m.net.layers[0].parameters()) == 77_076_992
     assert len(m.net.layers) == 36 and m.net.embed.shape == (152_064, 2048)

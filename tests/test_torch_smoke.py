@@ -48,6 +48,19 @@ def test_cpu_rehearsal_checks_every_run_and_is_not_a_smoke_run(no_card):
     assert all(i["launches"] == i["sweep_launches"] == 0 for i in runs)   # the CPU never
     #                                                                     counts a launch
     assert "[oracles]" in r.stdout and '{"call": "dsl tc"' in r.stdout
+    families = [json.loads(line) for line in r.stdout.splitlines()
+                if line.startswith('  {"model"') and '"family"' in line]
+    assert [f["model"] for f in families] == [
+        "deepseek-moe-16b", "zamba2-1.2b", "xlstm-1.3b", "seamless-m4t-large-v2"]
+    shapes = {"moe": 1, "hybrid": 1, "ssm": 0, "encdec": 3}    # distinct flash calls
+    for f in families:
+        assert f["kernel_vs_ref_f32"]["held"] and f["prefill_vs_decode_f32"]["held"]
+        held16 = f["family"] in ("ssm", "encdec")
+        assert f["kernel_vs_ref_bf16"]["held"] == f["prefill_vs_decode_bf16"]["held"] == held16
+        assert f["serve"]["first_token_equal"] and f["flash_launches"] == 0
+        assert len(f["flash_shapes_held"]) == shapes[f["family"]]
+    assert len(families[-1]["serve"]["flash_shapes_held"]) == 1      # the cross call, SQ = 1
+    assert "[lm-families]" in r.stdout
 
 
 def load_smoke():
@@ -69,14 +82,16 @@ def test_bound_counts_each_operand_once():
 
 
 @pytest.mark.parametrize("sq,skv,chunk", [(96, 96, 32), (64, 160, 24), (50, 50, 64)])
-def test_plain_attention_in_blocks_of_query_rows_is_attention_ref(sq, skv, chunk):
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_attention_in_blocks_of_query_rows_is_attention_ref(sq, skv, chunk, causal):
     """The plain version the smoke runs at 32K, one block of query rows at a
     time, is attention_ref of the whole: causal offsets included."""
     from repro_torch.kernels.flash_attention.ref import attention_ref
     smoke = load_smoke()
     gen = torch.Generator().manual_seed(sq + skv)
     q, k, v = (torch.randn((2, s, 32), generator=gen) for s in (sq, skv, skv))
-    got = smoke.attention_ref_in_chunks(q, k, v, chunk)
-    torch.testing.assert_close(got, attention_ref(q, k, v, causal=True), rtol=1e-6, atol=1e-6)
+    got = smoke.attention_ref_in_chunks(q, k, v, chunk, causal)
+    torch.testing.assert_close(got, attention_ref(q, k, v, causal=causal), rtol=1e-6,
+                               atol=1e-6)
     err, excess, rel_rms = smoke.flash_vs_plain(got, got, chunk)
     assert err == 0 and rel_rms == 0 and excess <= 0
