@@ -139,6 +139,26 @@ graph (before the LM phases free it):
                GraphService with that store registers the graph: `sssp`
                must be listed as tuned and answer as the default does.
 
+Phase 16 runs right after phase 14, on the same graph:
+
+ 16. dist    — the distributed backend (one rank per shard on
+               torch.distributed) at world size 1: a process group of one
+               rank in this process (NCCL with device_id cuda:0; gloo in the
+               rehearsal; under torchrun the launcher's group), then
+               compile_bundled(name, backend="distributed",
+               schedule=Schedule(dist_frontier=...)).bind(g,
+               mesh=make_mesh_1d())(...) for sssp, sssp_pull, pr, bc over
+               the 32 sources (batched), ppr over 4 of them (the
+               distributed lowering keeps ppr's per-source loop
+               sequential, as the reference does; held against phase 5's
+               sequential run), cc, lp and kcore k = 8, each under
+               dist_frontier "dense" and "auto", each equal to its phase-5
+               `cuda` result under phase 6's rules, printing the partition's
+               seconds and per run the second call's seconds, its
+               `_gather_elems` and its peak above held; then tc on the
+               symmetrised rmat(14) (the dense ELL rows fit: largest
+               degree 3,582), equal to scipy's count.
+
 Phase 15 runs last, after phase 10:
 
  15. lm-families — deepseek-moe-16b, zamba2-1.2b, xlstm-1.3b and
@@ -173,7 +193,7 @@ reported by the sweep that the main path runs, with the launches of
 phases 5, 11, 12 and 13, flash_attention.bf16 with the launches of
 phases 9 and 15, and tc_matmul.f32); the last line is {"ok": true,
 "device": {...}}. Without a CUDA device the run fails; a `--device cpu`
-rehearsal runs phases 3, 5, 6 and 8 to 15 with the plain versions at smoke
+rehearsal runs phases 3, 5, 6 and 8 to 16 with the plain versions at smoke
 sizes (the LMs' smoke configs, a 256-token prefill (128 in phase 15),
 RMAT --scale for the graph phases, RMAT 8 for tc), prints no result line
 and exits 3: it is not a smoke run.
@@ -588,8 +608,8 @@ def trace_run(fn, top=12, attempts=2):
     rows = []
     for ev in prof.key_averages():
         # kernels only: an aten op's row repeats the device time of the
-        # kernels it launched
-        if ev.device_type != DeviceType.CUDA:
+        # kernels it launched, and an `nccl:` row that of its NCCL kernel
+        if ev.device_type != DeviceType.CUDA or ev.key.startswith("nccl:"):
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
@@ -1257,6 +1277,155 @@ def tune_phase(scale, seed, dev):
                                  tune_s=tune_s, best_ms=res.record.best_ms,
                                  default_ms=res.record.default_ms, tuned=handle.tuned,
                                  sources=srcs.tolist())))
+
+
+# --------------------------------------------------------------------------
+# dist: the 1-D distributed backend on torch.distributed
+# --------------------------------------------------------------------------
+
+DIST_FRONTIERS = ("dense", "auto")
+
+
+def dist_runs(srcs):
+    """(program, the phase-5 `cuda` run it must equal, params) of phase 16.
+    ppr is held against the sequential run (4 sources): a per-source
+    do-while inside the set loop keeps the distributed lowering on the
+    sequential per-source loop, as in the reference."""
+    return (("sssp", ("sssp", "auto"), dict(src=0)),
+            ("sssp_pull", ("sssp_pull", "auto"), dict(src=0)),
+            ("pr", ("pr", "auto"), next(dict(p) for n, _, p in RUNS if n == "pr")),
+            ("bc", ("bc", "batched"), dict(sourceSet=srcs)),
+            ("ppr", ("ppr", "sequential"), dict(PPR_PARAMS, sourceSet=srcs[:4])),
+            ("cc", ("cc", "auto"), {}),
+            ("lp", ("lp", "auto"), {}),
+            ("kcore", ("kcore", "auto"), dict(k=8)))
+
+
+@contextlib.contextmanager
+def process_group(on_card):
+    """The process group of phase 16 (NCCL on the card, gloo for the
+    rehearsal), destroyed at the end: under torchrun (WORLD_SIZE is set)
+    the launcher's ranks, one card each (cuda:LOCAL_RANK); else a group of
+    one rank in this process."""
+    import datetime
+    import torch
+    import torch.distributed as tdist
+    backend = "nccl" if on_card else "gloo"
+    kw = dict(timeout=datetime.timedelta(seconds=300))
+    if on_card:
+        kw["device_id"] = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    if "WORLD_SIZE" not in os.environ:
+        kw.update(store=tdist.HashStore(), rank=0, world_size=1)
+    tdist.init_process_group(backend, **kw)
+    try:
+        yield
+    finally:
+        tdist.destroy_process_group()
+
+
+def dist_baselines(g, srcs, on_card):
+    """The phase-5 `cuda` results phase 16 holds its runs against, for a
+    run of phase 16 alone (--dist-only)."""
+    from repro_torch.core import Schedule, compile_bundled
+    want = {}
+    for name, run, params in dist_runs(srcs):
+        knobs = dict(batch_sources=1) if run[1] == "sequential" else {}
+        want[run] = compile_bundled(name, backend="cuda",
+                                    schedule=Schedule(**knobs)).bind(g)(**params)
+    sync(on_card)
+    return want
+
+
+def collective_probe(mesh, n_pad, on_card, reps=10):
+    """ms and bytes/s of the two collectives of a dense superstep at the
+    graph's size: an all-gather of this rank's int32 block into [N_pad] and
+    an all_reduce (sum) of an int32 [N_pad] buffer (the mean of `reps`
+    calls after one warm-up; bytes: the N_pad * 4 of the result)."""
+    import torch
+    from repro_torch.core import runtime_dist as rtd
+    blk = torch.zeros(n_pad // mesh.size, dtype=torch.int32, device=mesh.device)
+    full = torch.zeros(n_pad, dtype=torch.int32, device=mesh.device)
+    out = dict(dist="collectives", world=mesh.size, n_pad=n_pad,
+               all_gather_api=rtd._all_gather.__name__)
+    for name, fn in (("all_gather", lambda: rtd.gather(blk, mesh)),
+                     ("all_reduce", lambda: rtd.psum(full, mesh))):
+        fn()
+        sync(on_card)
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync(on_card)
+        secs = (time.perf_counter() - t) / reps
+        out[name] = dict(ms=secs * 1e3, bytes_per_s=n_pad * 4 / secs)
+    return out
+
+
+def dist_phase(g, want, srcs, on_card, seed, tc_scale, trace=False):
+    """Phase 16: the programs of phase 5 through compile_bundled(...,
+    backend="distributed").bind(g, mesh=make_mesh_1d())(...) under
+    dist_frontier dense and auto, each equal to its phase-5 `cuda` result
+    (`want`); then tc on the symmetrised rmat(tc_scale), equal to scipy.
+    With `trace`, one more call of each dense run under torch.profiler."""
+    import torch
+    from repro_torch.core import Schedule, compile_bundled, dist
+    from repro_torch.graph import rmat
+    infos = []
+    with process_group(on_card):
+        mesh = dist.make_mesh_1d(device=None if on_card else "cpu")
+        show = (lambda info: print("  " + json.dumps(info))) if mesh.rank == 0 \
+            else (lambda info: None)
+        t = time.perf_counter()
+        gd = dist.prepare(g, mesh)
+        sync(on_card)
+        show(dict(dist="prepare", world=mesh.size, device=str(mesh.device),
+                  seconds=time.perf_counter() - t))
+        show(collective_probe(mesh, gd["own_ids"].shape[0] * mesh.size, on_card))
+        for name, run, params in dist_runs(srcs):
+            for frontier in DIST_FRONTIERS:
+                bound = compile_bundled(name, backend="distributed",
+                                        schedule=Schedule(dist_frontier=frontier)).bind(
+                                            g, mesh=mesh)
+                t = time.perf_counter()
+                bound(**params)
+                sync(on_card)
+                first_s = time.perf_counter() - t
+                held = torch.cuda.memory_allocated() if on_card else None
+                if on_card:
+                    torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                out = bound(**params)
+                sync(on_card)
+                secs = time.perf_counter() - t
+                compare_outputs(out, want[run], f"{name}/{frontier} distributed vs "
+                                f"{'/'.join(run)} cuda")
+                info = dict(dist=name, frontier=frontier, held_against=f"{'/'.join(run)} cuda",
+                            first_s=first_s, seconds=secs,
+                            gather_elems=float(out["_gather_elems"]),
+                            peak_above_held_bytes=(torch.cuda.max_memory_allocated() - held
+                                                   if on_card else None))
+                infos.append(info)
+                show(info)
+                if trace and frontier == "dense":
+                    tr = trace_run(lambda: bound(**params))
+                    tr.pop("kernels")
+                    show(dict(dist=name, frontier=frontier, traced=True,
+                              untraced_ms=secs * 1e3, **tr))
+        gs = symmetrised(rmat(tc_scale, edge_factor=16, seed=seed, device=g.device))
+        bound = compile_bundled("tc", backend="distributed").bind(gs, mesh=mesh)
+        bound()
+        sync(on_card)
+        t = time.perf_counter()
+        got = bound()["triangle_count"]
+        sync(on_card)
+        secs = time.perf_counter() - t
+        count = scipy_triangles(gs)
+        if got.dtype != torch.int32 or int(got) != count:
+            fail(f"distributed tc = {int(got)} ({got.dtype}), scipy counts {count}")
+        info = dict(dist="tc", graph=f"rmat({tc_scale}) symmetrised", E=gs.num_edges,
+                    triangles=count, seconds=secs)
+        infos.append(info)
+        show(info)
+    return infos
 
 
 # --------------------------------------------------------------------------
@@ -2021,6 +2190,33 @@ def tc_phase(seed, dev, on_card, scale, trace):
                 plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
 
 
+def dist_only(args, on_card):
+    """Phase 16 alone on rmat(--scale): every rank builds the graph on its
+    card (cuda:LOCAL_RANK under torchrun) and its cuda results, then runs
+    the phase over all ranks."""
+    import torch
+    from repro_torch.graph import rmat
+    t0 = time.perf_counter()
+    dev = args.device
+    if on_card:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+        if int(os.environ.get("RANK", 0)) == 0:
+            print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                  "--format=csv,noheader"], capture_output=True, text=True,
+                                 check=True, timeout=60).stdout.strip())
+    g = rmat(args.scale, edge_factor=16, seed=args.seed, device=dev)
+    srcs = pick_sources(g, SET_SOURCES, args.seed)
+    want = dist_baselines(g, srcs, on_card)
+    phase("graph+cuda", t0, f"N={g.num_nodes} E={g.num_edges}")
+    t0 = time.perf_counter()
+    dist_phase(g, want, srcs, on_card, args.seed, 14 if on_card else 8,
+               on_card and args.trace)
+    phase("dist", t0, f"ranks {os.environ.get('WORLD_SIZE', 1)}: backend='distributed' "
+          "(dense, auto) == cuda; distributed tc == scipy")
+    print("dist-only run finished: not a smoke run")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22, help="RMAT scale (N = 2^scale)")
@@ -2029,6 +2225,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", action="store_true",
                     help="profile one more call of each cuda run (phase 7)")
+    ap.add_argument("--dist-only", action="store_true",
+                    help="the graph, its cuda results and phase 16 alone (under torchrun: "
+                         "one rank a card); not a smoke run")
     args = ap.parse_args(argv)
     on_card = args.device == "cuda"
 
@@ -2039,6 +2238,9 @@ def main(argv=None):
     from repro_torch.core import get_context
     from repro_torch.graph import rmat
     from repro_torch.kernels import _build
+    if args.dist_only:
+        dist_only(args, on_card)
+        return
 
     # 1. device
     t0 = time.perf_counter()
@@ -2164,6 +2366,13 @@ def main(argv=None):
     t0 = time.perf_counter()
     tune_phase(16 if on_card else args.scale, args.seed, args.device)
     phase("tune", t0, "autotune -> TuningStore -> GraphService reloads the tuned schedule")
+
+    # 16. dist
+    t0 = time.perf_counter()
+    dist_phase(g, {**results["cuda"], **set_results["cuda"]}, srcs, on_card, args.seed,
+               14 if on_card else 8, on_card and args.trace)
+    phase("dist", t0, "backend='distributed' at world size 1 (dense, auto) == cuda; "
+          "distributed tc == scipy")
     del g, ell, results, bounds, set_results
     dev = args.device
 

@@ -547,9 +547,8 @@ def autotune(prog: CompiledProgram, g, *, budget: int = 16, seed: int = 0,
     """
     if prog.backend not in ("local", "cuda"):
         raise NotImplementedError(
-            f"autotune of a {prog.backend!r} program: the distributed "
-            "backend is not ported to repro_torch yet (ROADMAP.md queue 1, "
-            "item 11)")
+            f"autotune of a {prog.backend!r} program: distributed autotune "
+            "is not ported to repro_torch yet (ROADMAP.md queue 1, item 11d)")
     if not prog.dsl_source:
         raise ValueError(
             "program has no dsl_source to recompile under candidate "

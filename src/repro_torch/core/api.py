@@ -8,10 +8,13 @@ The port of `repro.core.api`, with the same algorithm/schedule split:
     out   = bound(src=0)                             # serve queries
     print(prog.source)                               # generated Python/PyTorch
 
-Backends: ``"local"`` (plain torch, the reference's `local`) and
+Backends: ``"local"`` (plain torch, the reference's `local`),
 ``"cuda"`` (the reference's `pallas`: the relax and the PageRank gather go
-through the hand-written `ell_spmv` kernel). A program runs on the device
-that holds the graph. `compile_program` is memoized on `(source digest,
+through the hand-written `ell_spmv` kernel) and ``"distributed"`` (the
+paper's MPI backend on `torch.distributed`, one process per shard; bind
+with `mesh=dist.make_mesh_1d()` on every rank). A local or cuda program
+runs on the device that holds the graph, a distributed one on each rank's
+mesh device. `compile_program` is memoized on `(source digest,
 backend, schedule, fn_name)` — the reference's key without its `jit`
 slot, since PyTorch runs eagerly — and every compile, cache hits
 included, passes the static analysis gate first.
@@ -35,7 +38,7 @@ from .context import get_context
 from .lowering import lower
 from .parser import parse
 
-_BACKENDS = ("local", "cuda")
+_BACKENDS = ("local", "cuda", "distributed")
 
 _PROGRAM_DIR = os.path.join(os.path.dirname(__file__), "programs")
 
@@ -60,6 +63,9 @@ class CompiledProgram:
     # iterative construct to warm-start. Call through
     # `BoundProgram.refresh`, which derives the seeding from a GraphDelta.
     refresh_fn: Optional[Callable] = None
+    # distributed backend: which outputs are partitioned properties, which
+    # replicated scalars, and whether ranks need the dense ELL rows
+    dist_meta: Optional[dict] = None
 
     def recompile(self, schedule: Schedule) -> "CompiledProgram":
         """The same algorithm under a different schedule — a compile-cache
@@ -70,11 +76,17 @@ class CompiledProgram:
     def __call__(self, *args, **kwargs):
         return self.fn(*args, **kwargs)
 
-    def bind(self, g) -> "BoundProgram":
+    def bind(self, g, *, mesh=None) -> "BoundProgram":
         """Graph-bound callable — the uniform calling convention.
 
-        Memoized per (program, graph) with weakref keying: repeated binds
-        return the SAME `BoundProgram` as long as someone holds it."""
+        A distributed program runs over `mesh` (default:
+        `dist.make_mesh_1d()`, which needs the process group initialized);
+        every rank binds and calls alike. Memoized per (program, graph)
+        with weakref keying: repeated binds return the SAME `BoundProgram`
+        as long as someone holds it. An explicit `mesh=` bypasses the
+        cache (the mesh is caller state)."""
+        if mesh is not None:
+            return BoundProgram(self, g, mesh=mesh)
         key = (id(self), id(g))
         entry = _BIND_CACHE.get(key)
         if entry is not None:
@@ -102,20 +114,37 @@ class BoundProgram:
 
     Holds the graph strongly and warms the per-graph structures once at
     construction (the cuda backend's reverse sliced-ELL view and its sweep
-    plan; a local delta-stepping program's padded forward ELL), so every
+    plan; a local delta-stepping program's padded forward ELL; a
+    distributed program's rank arrays of the partition), so every
     subsequent call is pure execution."""
 
-    def __init__(self, program: CompiledProgram, graph):
+    def __init__(self, program: CompiledProgram, graph, *, mesh=None):
         self.program = program
         self.graph = graph
+        self.mesh = None
         ctx = get_context(graph)
+        if program.backend == "distributed":
+            from . import dist
+            self.mesh = mesh if mesh is not None else dist.make_mesh_1d()
+            self._gd = dist.prepare(graph, self.mesh,
+                                    ell=program.dist_meta["needs_ell"])
+            return
+        if mesh is not None:
+            raise ValueError(
+                "mesh= applies to the distributed backend only (this "
+                f"program's backend is {program.backend!r})")
         if program.backend == "cuda":
             ctx.sweep_plan(program.schedule)
         elif ", _dell" in program.source:
             ctx.delta_ell()   # warm the delta-stepping compact-relax view
 
     def __call__(self, **params):
-        return self.program.fn(self.graph, **params)
+        prog = self.program
+        if prog.backend != "distributed":
+            return prog.fn(self.graph, **params)
+        from . import dist
+        return dist.run_prepared(prog, self._gd, self.mesh,
+                                 num_nodes=self.graph.num_nodes, **params)
 
     def refresh(self, prev: dict, delta, /, **params):
         # prev/delta are positional-only: program params are free to reuse
@@ -133,6 +162,10 @@ class BoundProgram:
         `Schedule.refresh_threshold_frac`, this falls back to a plain call
         — either path returns the converged result a plain call would."""
         prog = self.program
+        if prog.backend == "distributed":
+            raise ValueError(
+                "refresh is a local/cuda entry point; recompute "
+                "distributed programs from scratch after an update")
         if prog.refresh_fn is None:
             raise ValueError(
                 f"{prog.name!r} has no incremental refresh: the program "
@@ -167,12 +200,12 @@ class BoundProgram:
                 f"E={g.num_edges}, device={g.device})")
 
 
-def _bind_sets(g, kw: dict, sets: tuple) -> dict:
+def _bind_sets(device, kw: dict, sets: tuple) -> dict:
     """`SetN` arguments (a tensor, a numpy array or a list of vertex ids)
-    as int32 tensors on the graph's device."""
+    as int32 tensors on `device` (the graph's, or the rank's)."""
     for name in sets:
         if kw.get(name) is not None:
-            kw[name] = torch.as_tensor(kw[name], dtype=torch.int32, device=g.device)
+            kw[name] = torch.as_tensor(kw[name], dtype=torch.int32, device=device)
     return kw
 
 
@@ -265,6 +298,9 @@ def compile_program(source: str, backend: str = "local",
     if backend == "local":
         from .codegen.local_torch import generate_local
         body, extra_env = generate_local(irfn, schedule=sched), None
+    elif backend == "distributed":
+        from .codegen.distributed import generate_distributed
+        body, extra_env = generate_distributed(irfn, schedule=sched)
     else:
         from .codegen.cuda_backend import generate_cuda
         body, extra_env = generate_cuda(irfn, schedule=sched)
@@ -283,25 +319,32 @@ def compile_program(source: str, backend: str = "local",
                 # degree-bucketed reverse (in-edge) view, owned by the
                 # graph's shared GraphContext — built once per (graph, layout)
                 return _raw(g, get_context(g).sliced_ell(_sched, reverse=True),
-                            **_bind_sets(g, kw, sets))
+                            **_bind_sets(g.device, kw, sets))
             return fn
         if takes_dell:
             # delta-stepping program: the padded forward-ELL view the
             # compact bucket relax gathers frontier out-rows from (None on
             # hub-heavy graphs → dense fallback)
             def fn(g, *, _raw=raw_fn, **kw):
-                return _raw(g, get_context(g).delta_ell(), **_bind_sets(g, kw, sets))
+                return _raw(g, get_context(g).delta_ell(),
+                            **_bind_sets(g.device, kw, sets))
+            return fn
+        if sets and backend == "distributed":
+            # the rank arrays' device: set ids compare with `own_ids`
+            def fn(gd, mesh, *, _raw=raw_fn, **kw):
+                return _raw(gd, mesh, **_bind_sets(gd["own_ids"].device, kw, sets))
             return fn
         if sets:
             def fn(g, *, _raw=raw_fn, **kw):
-                return _raw(g, **_bind_sets(g, kw, sets))
+                return _raw(g, **_bind_sets(g.device, kw, sets))
             return fn
         return raw_fn
 
     prog = CompiledProgram(
         name=irfn.name, backend=backend, source=src, fn=_wrap(raw),
         ir=irfn, schedule=sched, dsl_source=source, diagnostics=diags,
-        refresh_fn=_wrap(raw_refresh) if raw_refresh is not None else None)
+        refresh_fn=_wrap(raw_refresh) if raw_refresh is not None else None,
+        dist_meta=(extra_env or {}).get("__dist_meta__"))
     _COMPILE_CACHE[cache_key] = prog
     if fn_name is None:
         # also file under the resolved name, so an explicit request for the

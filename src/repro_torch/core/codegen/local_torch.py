@@ -44,6 +44,11 @@ class LocalCodegen:
     # relax (rt.relax_minplus_delta); cuda relaxes through its own sliced
     # kernel op instead
     supports_delta_ell = True
+    # per-source `while` / `do-while` loops inside a batched source-set
+    # region lower to one lane-masked loop (converged lanes frozen); the
+    # distributed backend keeps the sequential per-source loop instead (its
+    # supersteps would need rank-uniform trip counts per lane)
+    supports_batched_scalar_loops = True
 
     def __init__(self, irfn: I.IRFunction, schedule: Optional[Schedule] = None):
         self.f = irfn
@@ -270,7 +275,8 @@ class LocalCodegen:
             if self.batch is not None:
                 # per-source property inside a batched set loop → [B, N]
                 self.batch.arrays.add(prop)
-                head = f"{prop} = rt.init_prop_batch({self.batch.size}, N, {self.tdt(dtype)}"
+                head = (f"{prop} = rt.init_prop_batch({self.batch.size}, {self.VLEN}, "
+                        f"{self.tdt(dtype)}")
                 if init is None:
                     self.em.w(f"{head}, device=_dev)")
                 elif isinstance(init, I.IConst) and init.kind == "inf":
@@ -278,14 +284,13 @@ class LocalCodegen:
                 else:
                     self.em.w(f"{head}, {self.ex.expr(init, ctx)}, device=_dev)")
                 continue
+            head = f"{prop} = rt.init_prop({self.VLEN}, {self.tdt(dtype)}"
             if init is None:
-                self.em.w(f"{prop} = rt.init_prop(N, {self.tdt(dtype)}, device=_dev)")
+                self.em.w(f"{head}, device=_dev)")
             elif isinstance(init, I.IConst) and init.kind == "inf":
-                self.em.w(f"{prop} = rt.init_prop(N, {self.tdt(dtype)}, "
-                          f"rt.inf_for({self.tdt(dtype)}), device=_dev)")
+                self.em.w(f"{head}, rt.inf_for({self.tdt(dtype)}), device=_dev)")
             else:
-                self.em.w(f"{prop} = rt.init_prop(N, {self.tdt(dtype)}, "
-                          f"{self.ex.expr(init, ctx)}, device=_dev)")
+                self.em.w(f"{head}, {self.ex.expr(init, ctx)}, device=_dev)")
 
     def s_IDeclScalar(self, s: I.IDeclScalar, ctx):
         em = self.em
@@ -864,6 +869,8 @@ class LocalCodegen:
         condition per trip."""
         em = self.em
         if self.batch is not None:
+            if not self.supports_batched_scalar_loops:
+                raise CodegenError("do-while inside a batched source loop")
             return self._batched_scalar_loop(s, ctx, do_while=True)
         em.w("while True:")
         with em.block():
@@ -875,6 +882,8 @@ class LocalCodegen:
     def s_IWhile(self, s: I.IWhile, ctx):
         em = self.em
         if self.batch is not None:
+            if not self.supports_batched_scalar_loops:
+                raise CodegenError("while inside a batched source loop")
             return self._batched_scalar_loop(s, ctx, do_while=False)
         em.w(f"while bool({self.ex.expr(s.cond, ctx)}):")
         with em.block():

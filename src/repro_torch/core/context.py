@@ -28,7 +28,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..graph.csr import CSRGraph, resolve_schedule, to_ell, to_sliced_ell
+from ..graph.csr import (CSRGraph, pad_nodes, resolve_schedule, to_ell,
+                         to_sliced_ell)
 from ..kernels.ell_spmv.plan import sweep_plan
 from ..schedule import Schedule
 
@@ -138,6 +139,23 @@ class GraphContext:
                 return None
             return to_ell(g, reverse=False)
         return self.view(("delta_ell",), build)
+
+    def padded(self, multiple: int) -> CSRGraph:
+        """Node-count-padded copy of the graph (shard alignment)."""
+        return self.view(("padded", int(multiple)),
+                         lambda g: pad_nodes(g, multiple))
+
+    def dist_arrays(self, num_shards: int, *, ell: bool = False, rank: int = 0,
+                    device=None) -> dict:
+        """Rank `rank`'s arrays of the 1-D block partition over `num_shards`
+        shards, on `device` (default: the graph's). The host builds every
+        shard and keeps only this rank's row; the view is keyed by rank
+        and device, so two ranks of one process never share it."""
+        from . import runtime_dist as rtd
+        dev = torch.device(device) if device is not None else self.graph.device
+        key = ("dist_1d", int(num_shards), bool(ell), int(rank), str(dev))
+        return self.view(key, lambda g: rtd.shard_arrays(
+            rtd.prepare_graph_1d(g, num_shards, ell=ell), rank, dev))
 
     def fingerprint(self) -> str:
         """Stable content digest of the graph (structure + weights)."""

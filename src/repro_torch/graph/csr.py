@@ -396,3 +396,29 @@ def to_sliced_ell(
         hub_rows=as_dev(hub_rows), hub_cols=as_dev(indices[pos]),
         hub_wts=as_dev(wts[pos]),
         num_nodes=n, widths=tuple(int(c.shape[1]) for c in b_cols))
+
+
+def pad_nodes(g: CSRGraph, multiple: int) -> CSRGraph:
+    """Pad to a node-count multiple (the paper pads the last MPI shard; here
+    every shard gets the same extent). The padding vertices have no edges.
+    The membership key encodes N, so it is rebuilt for the padded count
+    (still sorted: CSR order is (src, dst)-lexicographic), wrapped to int32
+    as `from_edges` wraps it."""
+    n = g.num_nodes
+    n_pad = _round_up(max(n, 1), multiple)
+    if n_pad == n:
+        return g
+    extra = n_pad - n
+
+    def pad(t, fill):
+        return torch.cat([t, torch.full((extra,), fill, dtype=t.dtype, device=t.device)])
+
+    return dataclasses.replace(
+        g,
+        indptr=pad(g.indptr, int(g.indptr[-1])),
+        rev_indptr=pad(g.rev_indptr, int(g.rev_indptr[-1])),
+        out_degree=pad(g.out_degree, 0),
+        in_degree=pad(g.in_degree, 0),
+        edge_key=(g.edge_src.long() * n_pad + g.indices.long()).to(torch.int32),
+        num_nodes=n_pad,
+    )

@@ -269,6 +269,6 @@ def test_measure_wallclock_times_a_bound_call(pl):
 
 
 def test_autotune_of_a_distributed_program_names_its_item(pl):
-    prog = dataclasses.replace(tc.compile_bundled("sssp"), backend="distributed")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    prog = tc.compile_bundled("sssp", backend="distributed")
+    with pytest.raises(NotImplementedError, match="item 11d"):
         autotune(prog, pl[1], budget=2, measure=fake_measure)

@@ -1,12 +1,15 @@
-"""The port stands alone: nothing under src/repro_torch/, and not
-chip_smoke.py, imports jax or anything of the JAX package `repro`."""
+"""The port stands alone: nothing under src/repro_torch/, not
+chip_smoke.py, and not the module the distributed tests run in their ranks
+(tests/torch_dist_worker.py), imports jax or anything of the JAX package
+`repro`."""
 import ast
 import pathlib
 
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+FILES = PORT + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worker.py"]
 
 
 def imported_modules(path):
@@ -27,7 +30,8 @@ def forbidden(module: str) -> bool:
 def test_the_walk_sees_the_package():
     names = {p.name for p in FILES}
     assert {"csr.py", "ops.py", "kernel.py", "api.py", "transformer.py", "engine.py",
-            "chip_smoke.py"} <= names
+            "chip_smoke.py", "dist.py", "runtime_dist.py", "distributed.py",
+            "torch_dist_worker.py"} <= names
     assert all(p.exists() for p in FILES)
 
 
@@ -40,7 +44,7 @@ def test_no_jax_and_no_reference_imports(path):
 def test_relative_imports_stay_inside_the_port():
     """A relative import can only climb to src/repro_torch/ itself."""
     pkg = ROOT / "src" / "repro_torch"
-    for path in FILES[:-1]:
+    for path in PORT:
         depth = len(path.relative_to(pkg).parts) - 1
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):

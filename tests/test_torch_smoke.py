@@ -61,6 +61,13 @@ def test_cpu_rehearsal_checks_every_run_and_is_not_a_smoke_run(no_card):
         assert len(f["flash_shapes_held"]) == shapes[f["family"]]
     assert len(families[-1]["serve"]["flash_shapes_held"]) == 1      # the cross call, SQ = 1
     assert "[lm-families]" in r.stdout
+    dist = [json.loads(line) for line in r.stdout.splitlines()
+            if line.startswith('  {"dist"')]
+    assert {(d["dist"], d.get("frontier")) for d in dist} == {
+        ("prepare", None), ("collectives", None), ("tc", None)} | {
+        (p, f) for p in programs for f in ("dense", "auto")}
+    assert all(d["gather_elems"] > 0 for d in dist if "frontier" in d)
+    assert "[dist]" in r.stdout
 
 
 def load_smoke():
