@@ -4,6 +4,7 @@
     python3 chip_smoke.py                          # the smoke run: one card, RMAT scale 22
     python3 chip_smoke.py --trace                  # ... and where each run's time goes
     python3 chip_smoke.py --scale 10 --device cpu  # rehearsal of the plain versions
+    torchrun --nproc-per-node 4 chip_smoke.py --dist-only   # phases 16 and 17 on 4 cards
 
 Phases, each printed with its own seconds; any failure exits non-zero:
 
@@ -159,6 +160,34 @@ Phase 16 runs right after phase 14, on the same graph:
                symmetrised rmat(14) (the dense ELL rows fit: largest
                degree 3,582), equal to scipy's count.
 
+Phase 17 runs right after phase 16, in the same process group, on the same
+graph:
+
+ 17. grid    — the rest of the distributed backend at world size 1. The
+               2-D grid: make_mesh((1, 1), ("data", "model")), its tile's
+               partition seconds and per-superstep elements (gathered N/C,
+               reduce-scattered N/R, beside 1-D dense's N), then
+               dist2d.sssp_2d(g, mesh, 0), equal to phase 5's `cuda` sssp
+               exactly, and dist2d.pagerank_2d(g, mesh) (its sweep count
+               printed), held against a float64 iteration of as many sweeps
+               at rtol 1e-4; each timed on its second call with its peak
+               above held. Pods: make_mesh((1, 1), ("pod", "data")) and
+               dist.run_pod_parallel(compile_bundled("bc",
+               backend="distributed"), g, mesh, the 32 sources), equal to
+               phase 5's batched bc under phase 6's rules, its
+               `_gather_elems` equal to phase 16's dense bc. Distributed
+               autotune: autotune(compile_bundled("sssp",
+               backend="distributed"), rmat(16), budget=4, mesh=...) into a
+               TuningStore in a temporary file, the trials printed, every
+               rank's schedule and record the same (an all-gather of a
+               digest), the winner's dist equal to `cuda`'s.
+
+`--dist-only` runs the graph, its `cuda` baselines and phases 16 and 17
+alone; under `torchrun --nproc-per-node 4 chip_smoke.py --dist-only` (one
+card a rank, NCCL) phase 17 takes the grids (2, 2), (1, 4) and (4, 1) and
+the pods (2, 2) and (4, 1), a pod count above 1 holding `_gather_elems` to
+the sum of each pod's slice run alone; only rank 0 prints.
+
 Phase 15 runs last, after phase 10:
 
  15. lm-families — deepseek-moe-16b, zamba2-1.2b, xlstm-1.3b and
@@ -193,7 +222,7 @@ reported by the sweep that the main path runs, with the launches of
 phases 5, 11, 12 and 13, flash_attention.bf16 with the launches of
 phases 9 and 15, and tc_matmul.f32); the last line is {"ok": true,
 "device": {...}}. Without a CUDA device the run fails; a `--device cpu`
-rehearsal runs phases 3, 5, 6 and 8 to 16 with the plain versions at smoke
+rehearsal runs phases 3, 5, 6 and 8 to 17 with the plain versions at smoke
 sizes (the LMs' smoke configs, a 256-token prefill (128 in phase 15),
 RMAT --scale for the graph phases, RMAT 8 for tc), prints no result line
 and exits 3: it is not a smoke run.
@@ -204,6 +233,7 @@ import argparse
 import asyncio
 import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -233,7 +263,9 @@ LM_LOGIT_ATOL = 0.25
 
 
 def phase(name, t0, detail=""):
-    print(f"[{name}] {time.perf_counter() - t0:.3f} s {detail}".rstrip(), flush=True)
+    """A phase's line with its seconds; under torchrun, rank 0's only."""
+    if int(os.environ.get("RANK", 0)) == 0:
+        print(f"[{name}] {time.perf_counter() - t0:.3f} s {detail}".rstrip(), flush=True)
 
 
 def fail(msg):
@@ -1303,7 +1335,7 @@ def dist_runs(srcs):
 
 @contextlib.contextmanager
 def process_group(on_card):
-    """The process group of phase 16 (NCCL on the card, gloo for the
+    """The process group of phases 16 and 17 (NCCL on the card, gloo for the
     rehearsal), destroyed at the end: under torchrun (WORLD_SIZE is set)
     the launcher's ranks, one card each (cuda:LOCAL_RANK); else a group of
     one rank in this process."""
@@ -1324,8 +1356,8 @@ def process_group(on_card):
 
 
 def dist_baselines(g, srcs, on_card):
-    """The phase-5 `cuda` results phase 16 holds its runs against, for a
-    run of phase 16 alone (--dist-only)."""
+    """The phase-5 `cuda` results phases 16 and 17 hold their runs
+    against, for a run of those phases alone (--dist-only)."""
     from repro_torch.core import Schedule, compile_bundled
     want = {}
     for name, run, params in dist_runs(srcs):
@@ -1360,71 +1392,214 @@ def collective_probe(mesh, n_pad, on_card, reps=10):
     return out
 
 
+def second_call(fn, on_card):
+    """Calls `fn` twice; returns the second call's result and its timing:
+    the first call's seconds, the second's (host clock ending in a
+    synchronize) and its peak device memory above what was allocated just
+    before it."""
+    import torch
+    t = time.perf_counter()
+    fn()
+    sync(on_card)
+    first_s = time.perf_counter() - t
+    held = torch.cuda.memory_allocated() if on_card else None
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = fn()
+    sync(on_card)
+    secs = time.perf_counter() - t
+    return out, dict(first_s=first_s, seconds=secs, peak_above_held_bytes=(
+        torch.cuda.max_memory_allocated() - held if on_card else None))
+
+
+def shower(rank):
+    """Prints a phase line on rank 0 only."""
+    return (lambda info: print("  " + json.dumps(info))) if rank == 0 else (lambda info: None)
+
+
 def dist_phase(g, want, srcs, on_card, seed, tc_scale, trace=False):
-    """Phase 16: the programs of phase 5 through compile_bundled(...,
-    backend="distributed").bind(g, mesh=make_mesh_1d())(...) under
-    dist_frontier dense and auto, each equal to its phase-5 `cuda` result
-    (`want`); then tc on the symmetrised rmat(tc_scale), equal to scipy.
-    With `trace`, one more call of each dense run under torch.profiler."""
+    """Phase 16, inside `process_group`: the programs of phase 5 through
+    compile_bundled(..., backend="distributed").bind(g,
+    mesh=make_mesh_1d())(...) under dist_frontier dense and auto, each
+    equal to its phase-5 `cuda` result (`want`); then tc on the
+    symmetrised rmat(tc_scale), equal to scipy. With `trace`, one more
+    call of each dense run under torch.profiler."""
     import torch
     from repro_torch.core import Schedule, compile_bundled, dist
     from repro_torch.graph import rmat
     infos = []
-    with process_group(on_card):
-        mesh = dist.make_mesh_1d(device=None if on_card else "cpu")
-        show = (lambda info: print("  " + json.dumps(info))) if mesh.rank == 0 \
-            else (lambda info: None)
+    mesh = dist.make_mesh_1d(device=None if on_card else "cpu")
+    show = shower(mesh.rank)
+    t = time.perf_counter()
+    gd = dist.prepare(g, mesh)
+    sync(on_card)
+    show(dict(dist="prepare", world=mesh.size, device=str(mesh.device),
+              seconds=time.perf_counter() - t))
+    show(collective_probe(mesh, gd["own_ids"].shape[0] * mesh.size, on_card))
+    for name, run, params in dist_runs(srcs):
+        for frontier in DIST_FRONTIERS:
+            bound = compile_bundled(name, backend="distributed",
+                                    schedule=Schedule(dist_frontier=frontier)).bind(
+                                        g, mesh=mesh)
+            out, timing = second_call(lambda: bound(**params), on_card)
+            compare_outputs(out, want[run], f"{name}/{frontier} distributed vs "
+                            f"{'/'.join(run)} cuda")
+            info = dict(dist=name, frontier=frontier, held_against=f"{'/'.join(run)} cuda",
+                        first_s=timing["first_s"], seconds=timing["seconds"],
+                        gather_elems=float(out["_gather_elems"]),
+                        peak_above_held_bytes=timing["peak_above_held_bytes"])
+            infos.append(info)
+            show(info)
+            if trace and frontier == "dense":
+                tr = trace_run(lambda: bound(**params))
+                tr.pop("kernels")
+                show(dict(dist=name, frontier=frontier, traced=True,
+                          untraced_ms=timing["seconds"] * 1e3, **tr))
+    gs = symmetrised(rmat(tc_scale, edge_factor=16, seed=seed, device=g.device))
+    bound = compile_bundled("tc", backend="distributed").bind(gs, mesh=mesh)
+    bound()
+    sync(on_card)
+    t = time.perf_counter()
+    got = bound()["triangle_count"]
+    sync(on_card)
+    secs = time.perf_counter() - t
+    count = scipy_triangles(gs)
+    if got.dtype != torch.int32 or int(got) != count:
+        fail(f"distributed tc = {int(got)} ({got.dtype}), scipy counts {count}")
+    info = dict(dist="tc", graph=f"rmat({tc_scale}) symmetrised", E=gs.num_edges,
+                triangles=count, seconds=secs)
+    infos.append(info)
+    show(info)
+    return infos
+
+
+# --------------------------------------------------------------------------
+# grid: the 2-D grid, pod-parallel bc and distributed autotune
+# --------------------------------------------------------------------------
+
+def grid_shapes(world):
+    """(grids, pods) of phase 17 at `world` ranks: at 1 the (1, 1) of each;
+    at 4 the grids (2, 2), (1, 4), (4, 1) and the pods (2, 2), (4, 1)."""
+    sq = math.isqrt(world)
+    grids = dict.fromkeys((r, world // r) for r in (sq, 1, world) if world % r == 0)
+    pods = dict.fromkeys((p, world // p) for p in (sq, world) if world % p == 0)
+    return list(grids), list(pods)
+
+
+def agree_across_ranks(value, mesh, what):
+    """Fails unless every rank of the 1-D `mesh` holds the same JSON value
+    (an all-gather of the first 8 bytes of its sha256)."""
+    import hashlib
+    import torch
+    from repro_torch.core import runtime_dist as rtd
+    digest = hashlib.sha256(json.dumps(value, sort_keys=True).encode()).digest()[:8]
+    mine = torch.tensor([int.from_bytes(digest, "little", signed=True)], device=mesh.device)
+    every = rtd.gather(mine, mesh)
+    if not bool((every == mine).all()):
+        fail(f"{what}: the ranks disagree ({every.tolist()})")
+
+
+def grid_phase(g, want, srcs, on_card, seed, tune_scale, dist_infos):
+    """Phase 17, inside `process_group`, after phase 16: the 2-D grid
+    (`dist2d.sssp_2d` == phase 5's `cuda` sssp exactly, `pagerank_2d` ==
+    a float64 iteration of as many sweeps at rtol 1e-4), pod-parallel bc
+    (`dist.run_pod_parallel` over the 32 sources == phase 5's batched bc
+    under phase 6's rules; `_gather_elems` == phase 16's dense bc at one
+    pod, else the sum of each pod's slice run alone) and distributed
+    autotune of sssp on rmat(tune_scale) (budget 4, every rank's result
+    the same, the winner's dist == `cuda`'s)."""
+    import tempfile
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.autotune import TuningStore, autotune, schedule_to_dict
+    from repro_torch.core import Schedule, compile_bundled, dist, dist2d
+    from repro_torch.graph import rmat
+    dev = None if on_card else "cpu"
+    world = tdist.get_world_size()
+    show = shower(tdist.get_rank())
+    grids, pod_shapes = grid_shapes(world)
+    infos, pr_refs = [], {}
+    for shape in grids:
         t = time.perf_counter()
-        gd = dist.prepare(g, mesh)
+        mesh = dist.make_mesh(shape, (dist2d.DATA, dist2d.MODEL), device=dev)
+        tile = dist2d.prepare(g, mesh)
         sync(on_card)
-        show(dict(dist="prepare", world=mesh.size, device=str(mesh.device),
-                  seconds=time.perf_counter() - t))
-        show(collective_probe(mesh, gd["own_ids"].shape[0] * mesh.size, on_card))
-        for name, run, params in dist_runs(srcs):
-            for frontier in DIST_FRONTIERS:
-                bound = compile_bundled(name, backend="distributed",
-                                        schedule=Schedule(dist_frontier=frontier)).bind(
-                                            g, mesh=mesh)
-                t = time.perf_counter()
-                bound(**params)
-                sync(on_card)
-                first_s = time.perf_counter() - t
-                held = torch.cuda.memory_allocated() if on_card else None
-                if on_card:
-                    torch.cuda.reset_peak_memory_stats()
-                t = time.perf_counter()
-                out = bound(**params)
-                sync(on_card)
-                secs = time.perf_counter() - t
-                compare_outputs(out, want[run], f"{name}/{frontier} distributed vs "
-                                f"{'/'.join(run)} cuda")
-                info = dict(dist=name, frontier=frontier, held_against=f"{'/'.join(run)} cuda",
-                            first_s=first_s, seconds=secs,
-                            gather_elems=float(out["_gather_elems"]),
-                            peak_above_held_bytes=(torch.cuda.max_memory_allocated() - held
-                                                   if on_card else None))
-                infos.append(info)
-                show(info)
-                if trace and frontier == "dense":
-                    tr = trace_run(lambda: bound(**params))
-                    tr.pop("kernels")
-                    show(dict(dist=name, frontier=frontier, traced=True,
-                              untraced_ms=secs * 1e3, **tr))
-        gs = symmetrised(rmat(tc_scale, edge_factor=16, seed=seed, device=g.device))
-        bound = compile_bundled("tc", backend="distributed").bind(gs, mesh=mesh)
-        bound()
-        sync(on_card)
-        t = time.perf_counter()
-        got = bound()["triangle_count"]
-        sync(on_card)
-        secs = time.perf_counter() - t
-        count = scipy_triangles(gs)
-        if got.dtype != torch.int32 or int(got) != count:
-            fail(f"distributed tc = {int(got)} ({got.dtype}), scipy counts {count}")
-        info = dict(dist="tc", graph=f"rmat({tc_scale}) symmetrised", E=gs.num_edges,
-                    triangles=count, seconds=secs)
+        piece, n_pad = tile["piece"], tile["piece"] * world
+        show(dict(grid=shape, prepare_s=time.perf_counter() - t, piece=piece,
+                  tile_edges=int(tile["valid"].shape[0]),
+                  superstep_elems=dict(gathered=piece * shape[0],
+                                       reduce_scattered=piece * shape[1],
+                                       one_d_dense=n_pad)))
+        dist_out, timing = second_call(lambda: dist2d.sssp_2d(g, mesh, 0), on_card)
+        if not torch.equal(dist_out, want[("sssp", "auto")]["dist"]):
+            bad = int((dist_out != want[("sssp", "auto")]["dist"]).sum())
+            fail(f"sssp_2d {shape}: dist differs from cuda sssp at {bad} vertices")
+        info = dict(grid=shape, run="sssp_2d", supersteps=dist2d.sssp_2d.supersteps, **timing)
         infos.append(info)
         show(info)
+        pr, timing = second_call(lambda: dist2d.pagerank_2d(g, mesh), on_card)
+        iters = dist2d.pagerank_2d.iterations
+        if not bool(torch.isfinite(pr).all()):
+            fail(f"pagerank_2d {shape}: non-finite ranks")
+        if tdist.get_rank() == 0:
+            if iters not in pr_refs:
+                pr_refs[iters] = pagerank_ref(g, iters)
+            ref = pr_refs[iters]
+            rel = np.abs(pr.double().cpu().numpy() - ref) / ref
+            if not float(rel.max()) <= 1e-4:
+                fail(f"pagerank_2d {shape}: {int((rel > 1e-4).sum())} ranks beyond rtol "
+                     f"1e-4 of the float64 iteration (largest {float(rel.max()):.3e})")
+            timing["max_rel_err_vs_float64"] = float(rel.max())
+        info = dict(grid=shape, run="pagerank_2d", iterations=iters, **timing)
+        infos.append(info)
+        show(info)
+    prog = compile_bundled("bc", backend="distributed")
+    dense_bc = next(i["gather_elems"] for i in dist_infos
+                    if i["dist"] == "bc" and i["frontier"] == "dense")
+    for shape in pod_shapes:
+        pod_mesh = dist.make_mesh(shape, ("pod", "data"), device=dev)
+        out, timing = second_call(lambda: dist.run_pod_parallel(prog, g, pod_mesh, srcs),
+                                  on_card)
+        compare_outputs(out, want[("bc", "batched")], f"pod bc {shape} vs bc/batched cuda")
+        k = len(srcs) // shape[0]
+        alone = prog.bind(g, mesh=pod_mesh.axis("data"))
+        want_elems = dense_bc if shape[0] == 1 else sum(
+            float(alone(sourceSet=srcs[p * k:(p + 1) * k])["_gather_elems"])
+            for p in range(shape[0]))
+        if float(out["_gather_elems"]) != want_elems:
+            fail(f"pod bc {shape}: _gather_elems {float(out['_gather_elems'])}, the pods' "
+                 f"own runs {want_elems}")
+        info = dict(pods=shape, run="run_pod_parallel bc", sources=len(srcs),
+                    gather_elems=float(out["_gather_elems"]), **timing)
+        infos.append(info)
+        show(info)
+    g16 = rmat(tune_scale, edge_factor=16, seed=seed, device=g.device)
+    mesh = dist.make_mesh_1d(device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tuning.json")
+        t = time.perf_counter()
+        res = autotune(compile_bundled("sssp", backend="distributed"), g16, budget=4,
+                       store=TuningStore(path), mesh=mesh)
+        tune_s = time.perf_counter() - t
+        stored = TuningStore(path).records() if mesh.rank == 0 else None
+    agree_across_ranks(dict(schedule=schedule_to_dict(res.schedule),
+                            record=res.record.to_dict()), mesh, "distributed autotune")
+    if mesh.rank == 0 and (len(stored) != 1 or stored[0].schedule != res.record.schedule):
+        fail("distributed autotune: rank 0's store does not hold the winner")
+    base = schedule_to_dict(Schedule())
+    for i, trial in enumerate(res.record.trials):
+        knobs = {k: v for k, v in trial["schedule"].items() if v != base[k]}
+        show(dict(trial=i, ms=trial["ms"], knobs=knobs))
+    got = res.program.bind(g16, mesh=mesh)(src=0)["dist"]
+    ref = compile_bundled("sssp", backend="cuda").bind(g16)(src=0)["dist"]
+    if not torch.equal(got, ref):
+        fail(f"distributed autotune: the winner's dist differs from cuda's at "
+             f"{int((got != ref).sum())} vertices")
+    info = dict(tune=f"rmat({tune_scale})", N=g16.num_nodes, E=g16.num_edges, tune_s=tune_s,
+                best_ms=res.record.best_ms, default_ms=res.record.default_ms)
+    infos.append(info)
+    show(info)
     return infos
 
 
@@ -2191,9 +2366,9 @@ def tc_phase(seed, dev, on_card, scale, trace):
 
 
 def dist_only(args, on_card):
-    """Phase 16 alone on rmat(--scale): every rank builds the graph on its
-    card (cuda:LOCAL_RANK under torchrun) and its cuda results, then runs
-    the phase over all ranks."""
+    """Phases 16 and 17 alone on rmat(--scale): every rank builds the graph
+    on its card (cuda:LOCAL_RANK under torchrun) and its cuda results, then
+    runs the phases over all ranks in one process group."""
     import torch
     from repro_torch.graph import rmat
     t0 = time.perf_counter()
@@ -2209,12 +2384,20 @@ def dist_only(args, on_card):
     srcs = pick_sources(g, SET_SOURCES, args.seed)
     want = dist_baselines(g, srcs, on_card)
     phase("graph+cuda", t0, f"N={g.num_nodes} E={g.num_edges}")
-    t0 = time.perf_counter()
-    dist_phase(g, want, srcs, on_card, args.seed, 14 if on_card else 8,
-               on_card and args.trace)
-    phase("dist", t0, f"ranks {os.environ.get('WORLD_SIZE', 1)}: backend='distributed' "
-          "(dense, auto) == cuda; distributed tc == scipy")
-    print("dist-only run finished: not a smoke run")
+    ranks = os.environ.get("WORLD_SIZE", 1)
+    with process_group(on_card):
+        t0 = time.perf_counter()
+        dist_infos = dist_phase(g, want, srcs, on_card, args.seed, 14 if on_card else 8,
+                                on_card and args.trace)
+        phase("dist", t0, f"ranks {ranks}: backend='distributed' (dense, auto) == cuda; "
+              "distributed tc == scipy")
+        t0 = time.perf_counter()
+        grid_phase(g, want, srcs, on_card, args.seed, 16 if on_card else args.scale,
+                   dist_infos)
+        phase("grid", t0, f"ranks {ranks}: sssp_2d == cuda sssp, pagerank_2d == float64 "
+              "iteration, pod bc == cuda bc, distributed autotune agrees across ranks")
+    if int(os.environ.get("RANK", 0)) == 0:
+        print("dist-only run finished: not a smoke run")
 
 
 def main(argv=None):
@@ -2226,7 +2409,7 @@ def main(argv=None):
     ap.add_argument("--trace", action="store_true",
                     help="profile one more call of each cuda run (phase 7)")
     ap.add_argument("--dist-only", action="store_true",
-                    help="the graph, its cuda results and phase 16 alone (under torchrun: "
+                    help="the graph, its cuda results and phases 16 and 17 alone (under torchrun: "
                          "one rank a card); not a smoke run")
     args = ap.parse_args(argv)
     on_card = args.device == "cuda"
@@ -2367,12 +2550,20 @@ def main(argv=None):
     tune_phase(16 if on_card else args.scale, args.seed, args.device)
     phase("tune", t0, "autotune -> TuningStore -> GraphService reloads the tuned schedule")
 
-    # 16. dist
-    t0 = time.perf_counter()
-    dist_phase(g, {**results["cuda"], **set_results["cuda"]}, srcs, on_card, args.seed,
-               14 if on_card else 8, on_card and args.trace)
-    phase("dist", t0, "backend='distributed' at world size 1 (dense, auto) == cuda; "
-          "distributed tc == scipy")
+    # 16. dist; 17. grid
+    want = {**results["cuda"], **set_results["cuda"]}
+    with process_group(on_card):
+        t0 = time.perf_counter()
+        dist_infos = dist_phase(g, want, srcs, on_card, args.seed, 14 if on_card else 8,
+                                on_card and args.trace)
+        phase("dist", t0, "backend='distributed' at world size 1 (dense, auto) == cuda; "
+              "distributed tc == scipy")
+        t0 = time.perf_counter()
+        grid_phase(g, want, srcs, on_card, args.seed, 16 if on_card else args.scale,
+                   dist_infos)
+        phase("grid", t0, "sssp_2d == cuda sssp, pagerank_2d == float64 iteration, pod bc "
+              "== cuda bc, distributed autotune's winner == cuda")
+    del want
     del g, ell, results, bounds, set_results
     dev = args.device
 

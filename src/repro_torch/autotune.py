@@ -1,6 +1,6 @@
 """Schedule autotuner: search the `Schedule` space per (program, graph).
 
-The port of `repro.autotune`, over the port's `local` and `cuda` backends:
+The port of `repro.autotune`, over the port's three backends:
 
   1. **Search space** — `search_space(stats)` derives candidate schedules
      from `Schedule`'s own fields, pruned by the graph statistics a
@@ -9,13 +9,17 @@ The port of `repro.autotune`, over the port's `local` and `cuda` backends:
      of the stats, equal to the reference's.
   2. **Measure loop** — each trial recompiles the program under a
      candidate schedule through the compile cache and times
-     `prog.bind(g)` executions with warm-up (synchronizing the graph's
-     device), taking the min over repetitions.
+     `prog.bind(g)` executions with warm-up (synchronizing the device
+     the call ran on), taking the min over repetitions. A distributed
+     program is tuned by every rank of its mesh alike: each trial's
+     seconds are the slowest rank's (a BSP run waits for it), so every
+     rank picks the same winner.
   3. **Persistence** — results land in a `TuningRecord` keyed by
      ``(source digest, backend, graph fingerprint)`` that round-trips
      through JSON via `TuningStore`, in the reference's file format. The
      backend is part of the key, so a `cuda` record never answers a
-     `local` (or the reference's `pallas`) lookup.
+     `local` (or the reference's `pallas`) lookup. Under a mesh, rank
+     0's store decides for every rank and rank 0 alone writes the file.
 
 Entry point::
 
@@ -40,9 +44,11 @@ from typing import Callable, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from .core.analysis import ERROR, check_schedule, program_analysis
 from .core.api import CompiledProgram
+from .core import runtime_dist as rtd
 from .core.context import get_context
 from .schedule import LANE_MULTIPLE, Schedule
 
@@ -268,8 +274,9 @@ def default_params(prog: CompiledProgram, g, *, seed: int = 0,
 # --------------------------------------------------------------------------
 
 def _sync(bound) -> None:
-    """Wait for the work a call queued on the graph's device."""
-    dev = bound.graph.device
+    """Wait for the work a call queued on its device (a distributed
+    program's mesh device, else the graph's)."""
+    dev = bound.mesh.device if bound.mesh is not None else bound.graph.device
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
@@ -519,7 +526,7 @@ def autotune(prog: CompiledProgram, g, *, budget: int = 16, seed: int = 0,
              warmup: int = 1, reps: int = 3,
              measure: Optional[Callable] = None,
              store: Union[TuningStore, str, None] = None,
-             verbose: bool = False) -> TuningResult:
+             verbose: bool = False, mesh=None) -> TuningResult:
     """Search the `Schedule` space for `prog` on `g`; return the best.
 
     * `budget` caps the number of measured candidates (trial #0 is always
@@ -529,8 +536,12 @@ def autotune(prog: CompiledProgram, g, *, budget: int = 16, seed: int = 0,
       derived from the program's IR (`default_params`).
     * `measure(bound, params) -> seconds` replaces the wall-clock timer
       (tests inject a deterministic cost model here).
-    * a program of another backend than `local` or `cuda` raises
-      `NotImplementedError`.
+    * a distributed program runs its trials over `mesh` (default:
+      `dist.make_mesh_1d()`, on the card), and every rank of the mesh
+      must call `autotune` alike: each trial's seconds are the largest of
+      any rank's (an all-reduce), the store is rank 0's (broadcast) and
+      only rank 0 saves it, so every rank returns the same schedule and
+      record. `mesh=` applies to the distributed backend only.
     * `store` (a `TuningStore` or a path) persists the result; a valid
       stored record for (source digest, backend, graph fingerprint) skips
       measurement entirely, and a record whose digest or fingerprint no
@@ -545,10 +556,12 @@ def autotune(prog: CompiledProgram, g, *, budget: int = 16, seed: int = 0,
     `measure`: candidate order, truncation, and tie-breaking (earliest
     trial wins) contain no randomness beyond the seeded param draw.
     """
-    if prog.backend not in ("local", "cuda"):
-        raise NotImplementedError(
-            f"autotune of a {prog.backend!r} program: distributed autotune "
-            "is not ported to repro_torch yet (ROADMAP.md queue 1, item 11d)")
+    if prog.backend == "distributed":
+        from .core import dist
+        mesh = mesh if mesh is not None else dist.make_mesh_1d()
+    elif mesh is not None:
+        raise ValueError("mesh= applies to the distributed backend only (this "
+                         f"program's backend is {prog.backend!r})")
     if not prog.dsl_source:
         raise ValueError(
             "program has no dsl_source to recompile under candidate "
@@ -559,6 +572,8 @@ def autotune(prog: CompiledProgram, g, *, budget: int = 16, seed: int = 0,
 
     if isinstance(store, str):
         store = TuningStore(store)
+    if store is not None and mesh is not None:
+        _take_rank0_records(store, mesh)
     if store is not None:
         rec = store.lookup(digest, prog.backend, fingerprint)
         if rec is not None:
@@ -631,7 +646,10 @@ def autotune(prog: CompiledProgram, g, *, budget: int = 16, seed: int = 0,
     best_i, best_s = 0, float("inf")
     for i, cand in enumerate(cands):
         trial = prog.recompile(cand)       # compile-cache hit when seen
-        secs = float(measure(trial.bind(g), params))
+        secs = float(measure(trial.bind(g, mesh=mesh), params))
+        if mesh is not None:      # a BSP run lasts as long as its slowest rank
+            secs = float(rtd.pmax(torch.tensor(secs, dtype=torch.float64,
+                                               device=mesh.device), mesh))
         trials.append({"schedule": schedule_to_dict(cand),
                        "ms": round(1e3 * secs, 4),
                        "source": ("seeded" if seeded_from and i == 0
@@ -655,6 +673,23 @@ def autotune(prog: CompiledProgram, g, *, budget: int = 16, seed: int = 0,
         pruned_candidates=pruned, seeded_from=seeded_from)
     if store is not None:
         store.put(record)
-        store.save()
+        if mesh is None or mesh.rank == 0:
+            store.save()
+        if mesh is not None:
+            _barrier(mesh)        # no rank returns before the file is written
     return TuningResult(schedule=best, program=prog.recompile(best),
                         record=record)
+
+
+def _take_rank0_records(store: TuningStore, mesh) -> None:
+    """Every rank's store holds rank 0's records (a broadcast), so the
+    store hit and the seeding neighbour are decided alike on every rank."""
+    box = [store._records if mesh.rank == 0 else None]
+    tdist.broadcast_object_list(box, group=mesh.group, device=mesh.device, group_src=0)
+    store._records = box[0]
+
+
+def _barrier(mesh) -> None:
+    """Returns once every rank of `mesh` has reached it (the host reads an
+    all-reduce, which completes only when every rank has entered it)."""
+    int(rtd.psum(torch.ones((), dtype=torch.int32, device=mesh.device), mesh))

@@ -157,6 +157,17 @@ class GraphContext:
         return self.view(key, lambda g: rtd.shard_arrays(
             rtd.prepare_graph_1d(g, num_shards, ell=ell), rank, dev))
 
+    def dist_tile_2d(self, rows: int, cols: int, *, rank: int, device=None) -> dict:
+        """Rank `rank`'s tile of the R×C grid partition (`core.dist2d`) on
+        `device` (default: the graph's): the host builds every tile and the
+        rank keeps its own real edges; keyed by grid shape, rank and
+        device, as `dist_arrays` is."""
+        from . import dist2d
+        dev = torch.device(device) if device is not None else self.graph.device
+        key = ("dist_2d", int(rows), int(cols), int(rank), str(dev))
+        return self.view(key, lambda g: dist2d.shard_tile(
+            dist2d.prepare_graph_2d(g, rows, cols), rank, dev))
+
     def fingerprint(self) -> str:
         """Stable content digest of the graph (structure + weights)."""
         return self.view(("fingerprint",), _graph_fingerprint)
@@ -289,12 +300,16 @@ def clear() -> None:
 
 
 def prepare(g: CSRGraph, schedule: Optional[Schedule] = None, *,
-            backend: str = "cuda", program=None) -> GraphContext:
+            backend: str = "cuda", mesh=None, program=None) -> GraphContext:
     """Explicit warm-up: build the derived structures `backend` needs so the
     first query against `g` pays no host-side view construction.
 
     * ``cuda`` — the reverse sliced-ELL view for `schedule`'s layout and
       its sweep plan;
+    * ``distributed`` — this rank's arrays of the 1-D partition for `mesh`
+      (default: `dist.make_mesh_1d()`, on the card): the very entry
+      `prog.bind(g, mesh=mesh)` then reads; `program=` says whether its
+      body needs the dense ELL rows (`dist_meta["needs_ell"]`, e.g. tc);
     * ``local`` — nothing derived (the CSR tensors ARE the layout); the
       context is still registered so `bind` is uniform.
 
@@ -308,9 +323,15 @@ def prepare(g: CSRGraph, schedule: Optional[Schedule] = None, *,
     ctx = get_context(g)
     if backend == "cuda":
         ctx.sweep_plan(sched)
+    elif backend == "distributed":
+        from . import dist
+        meta = getattr(program, "dist_meta", None) or {}
+        dist.prepare(g, mesh if mesh is not None else dist.make_mesh_1d(),
+                     ell=meta.get("needs_ell", False))
     elif backend != "local":
         raise ValueError(
-            f"unknown backend {backend!r}; expected 'local' or 'cuda'")
+            f"unknown backend {backend!r}; expected 'local', 'cuda' or "
+            "'distributed'")
     return ctx
 
 

@@ -1,8 +1,9 @@
 """Distributed runtime of the MPI-analogue backend, on `torch.distributed`.
 
-The port of the 1-D half of `repro.core.runtime_dist` (the paper's MPI
-backend, §3.2): one process per shard, SPMD, as under `mpirun` or
-`torchrun`.
+The port of `repro.core.runtime_dist` (the paper's MPI backend, §3.2), and
+the two axis collectives of the 2-D grid (`reduce_scatter_min`,
+`reduce_scatter_sum`, which `core.dist2d` runs over its "model" axis):
+one process per shard, SPMD, as under `mpirun` or `torchrun`.
 
   * each rank owns a contiguous vertex block (`own_ids`), the last block
     padded, exactly the paper's scheme;
@@ -35,9 +36,11 @@ from ..graph.csr import CSRGraph, to_ell
 from ..graph.partition import partition_edges_1d
 from . import runtime as rt
 
-# `all_gather_into_tensor` is deprecated for `all_gather_single` from torch
-# 2.13 on (a FutureWarning per call); older lines have only the former
+# `all_gather_into_tensor` and `reduce_scatter_tensor` are deprecated for
+# `all_gather_single` and `reduce_scatter_single` from torch 2.13 on (a
+# FutureWarning per call); older lines have only the former
 _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
 
 
 # --------------------------------------------------------------------------
@@ -142,6 +145,26 @@ def gather_rows(x, mesh):
     s, b = x.shape
     return _gather_dim0(x, mesh).view(mesh.size, s, b).permute(1, 0, 2).reshape(
         s, mesh.size * b)
+
+
+def reduce_scatter_min(part, mesh):
+    """Min-reduce-scatter over an axis: `part` is [size * piece]
+    destination candidates; rank k receives min over ranks of chunk k
+    ([piece]). An all-to-all of the chunks, then a local min (the
+    reference's `_reduce_scatter_min`; MIN has no reduce-scatter in
+    every backend)."""
+    chunks = part.reshape(mesh.size, -1).contiguous()
+    got = torch.empty_like(chunks)
+    dist.all_to_all_single(got, chunks, group=mesh.group)
+    return torch.amin(got, dim=0)
+
+
+def reduce_scatter_sum(part, mesh):
+    """Sum-reduce-scatter over an axis: [size * piece] -> this rank's
+    [piece] chunk summed over ranks (the reference's `psum_scatter`)."""
+    out = torch.empty((part.shape[0] // mesh.size,), dtype=part.dtype, device=part.device)
+    _reduce_scatter(out, part.contiguous(), group=mesh.group)
+    return out
 
 
 def _all_reduce(x, op, mesh):

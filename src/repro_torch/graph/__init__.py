@@ -4,7 +4,8 @@ from .csr import (CSRGraph, ENGINE, EllGraph, EngineConfig, FIELDS, INF_I32,
                   resolve_device, resolve_schedule, to_ell, to_sliced_ell)
 from .dynamic import (GraphDelta, RefreshPlan, apply_update, patch_sliced_ell,
                       sliced_ell_edges)
-from .partition import Partition1D, block_partition_1d
+from .partition import (Partition1D, Partition2D, block_partition_1d, partition_2d,
+                        piece_order_to_global)
 from .generators import (uniform_random, rmat, road, small_world,
                          powerlaw_social, preferential_attachment, load_suite,
                          SUITE)
@@ -14,6 +15,7 @@ __all__ = [
     "Schedule", "SlicedEllGraph", "from_arrays", "from_edges", "pad_nodes",
     "resolve_device", "resolve_schedule", "to_ell", "to_sliced_ell",
     "GraphDelta", "RefreshPlan", "apply_update", "patch_sliced_ell",
-    "sliced_ell_edges", "Partition1D", "block_partition_1d", "uniform_random",
+    "sliced_ell_edges", "Partition1D", "Partition2D", "block_partition_1d",
+    "partition_2d", "piece_order_to_global", "uniform_random",
     "rmat", "road", "small_world", "powerlaw_social", "preferential_attachment", "load_suite", "SUITE",
 ]

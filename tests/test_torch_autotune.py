@@ -1,9 +1,11 @@
 """The port's autotuner against the reference's: mirrors
-tests/test_autotune.py without its distributed case. The pure pieces
-(`source_digest`, `search_space(stats)`, `stats_distance`) must equal the
-reference's on the same graphs; the store's JSON must round-trip between
-the two packages, keyed by backend. The measure loop runs with a
-deterministic cost model (`fake_measure`), as the reference's tests do."""
+tests/test_autotune.py. The pure pieces (`source_digest`,
+`search_space(stats)`, `stats_distance`) must equal the reference's on the
+same graphs; the store's JSON must round-trip between the two packages,
+keyed by backend. The measure loop runs with a deterministic cost model
+(`fake_measure`), as the reference's tests do; the distributed case runs
+in a world of gloo ranks (`torch_dist_worker.spawn_world`) under a cost
+that differs from rank to rank (`torch_dist_worker.digest_cost`)."""
 import dataclasses
 import json
 
@@ -269,6 +271,103 @@ def test_measure_wallclock_times_a_bound_call(pl):
 
 
 def test_autotune_of_a_distributed_program_names_its_item(pl):
+    """Distributed autotune runs over a mesh: with no process group it
+    raises as `make_mesh_1d` does, before any trial, and `mesh=` on a
+    program of another backend raises."""
     prog = tc.compile_bundled("sssp", backend="distributed")
-    with pytest.raises(NotImplementedError, match="item 11d"):
-        autotune(prog, pl[1], budget=2, measure=fake_measure)
+    calls = []
+    with pytest.raises(RuntimeError, match="initialized default process group"):
+        autotune(prog, pl[1], budget=2, measure=lambda b, p: calls.append(1) or 1.0)
+    assert not calls
+    with pytest.raises(ValueError, match="distributed backend only"):
+        autotune(tc.compile_bundled("sssp"), pl[1], budget=2, measure=fake_measure,
+                 mesh=object())
+
+
+# --- distributed: every rank of a mesh tunes alike ----------------------------------
+
+TUNE_WORLD = 4
+
+
+@pytest.fixture(scope="module")
+def tuned_world(pl, tmp_path_factory):
+    from torch_dist_ref import graph_spec
+    from torch_dist_worker import spawn_world
+    path = str(tmp_path_factory.mktemp("tune") / "tuned.json")
+    res = spawn_world(TUNE_WORLD, {"tune": {"graph": graph_spec(pl[0]), "store": path,
+                                             "budget": 4}},
+                      tmp_path_factory.mktemp("tune-world"))
+    return [r["tune"] for r in res], path
+
+
+def test_distributed_autotune_agrees_across_ranks(pl, tuned_world):
+    """Every rank returns the same schedule and record; the trials are the
+    reference's distributed search space after legality pruning, dense
+    first; each trial's time is the slowest rank's, so the winner is the
+    min over trials of the max over ranks, though the ranks alone would
+    pick different winners."""
+    from repro.core.analysis import ERROR, check_schedule, program_analysis
+    from torch_dist_worker import digest_cost
+    res, _ = tuned_world
+    first = res[0]
+    for r in res[1:]:
+        assert r["schedule"] == first["schedule"] and r["record"] == first["record"]
+    trials = first["record"]["trials"]
+    assert first["record"]["backend"] == "distributed" and len(trials) == 4
+    assert trials[0]["schedule"]["dist_frontier"] == "dense"
+    ref = rc.compile_bundled("sssp", backend="distributed")
+    fx = program_analysis(ref.dsl_source).functions.get(ref.name)
+    cands = [c for c in rat.search_space(rc.get_context(pl[0]).stats(), base=ref.schedule,
+                                         backend="distributed")
+             if not any(d.severity == ERROR for d in check_schedule(fx, c, "distributed"))]
+    assert [t["schedule"] for t in trials] == as_dicts(cands[:4])
+    costs = np.array([[digest_cost(t["schedule"], rank) for t in trials]
+                      for rank in range(TUNE_WORLD)])
+    assert [t["ms"] for t in trials] == [round(1e3 * c, 4) for c in costs.max(axis=0)]
+    assert first["schedule"] == trials[int(np.argmin(costs.max(axis=0)))]["schedule"]
+    assert len({int(np.argmin(row)) for row in costs}) > 1
+    assert first["record"]["best_ms"] <= first["record"]["default_ms"]
+
+
+def test_distributed_autotune_store_and_winner(pl, tuned_world):
+    """Rank 0 alone writes the store, once; the second call is a store hit
+    on every rank with the same schedule; the reference's store reads the
+    record; the winner's sssp is the oracle's."""
+    res, path = tuned_world
+    assert [r["saves"] for r in res] == [1] + [0] * (TUNE_WORLD - 1)
+    assert all(r["from_store"] == (False, True) and r["again"] == r["schedule"] for r in res)
+    rec = rat.TuningStore(path).records()
+    assert len(rec) == 1 and rec[0].backend == "distributed"
+    assert rec[0].schedule == res[0]["schedule"]
+    for r in res:
+        assert np.array_equal(r["dist"], sssp_ref(pl[0], 0).astype(np.int32))
+
+
+@pytest.fixture
+def one_rank_group():
+    import torch.distributed as tdist
+    assert not tdist.is_initialized()
+    tdist.init_process_group("gloo", store=tdist.HashStore(), rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        tdist.destroy_process_group()
+
+
+@pytest.mark.parametrize("name", ["sssp", "tc"])
+def test_prepare_warms_the_entry_bind_reads(name, pl, one_rank_group):
+    """prepare(backend="distributed") builds exactly the rank arrays
+    `bind(g, mesh=)` then reads (the same object; `program=` says whether
+    the dense ELL rows are needed); without a mesh it takes the card's."""
+    import torch
+    _, tgr = pl
+    mesh = tc.dist.make_mesh_1d(device="cpu")
+    prog = tc.compile_bundled(name, backend="distributed")
+    ctx = tc.prepare(tgr, backend="distributed", mesh=mesh, program=prog)
+    before = ctx.view_keys()
+    assert prog.bind(tgr, mesh=mesh)._gd is ctx.dist_arrays(
+        1, ell=prog.dist_meta["needs_ell"], rank=0, device="cpu")
+    assert ctx.view_keys() == before
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tc.prepare(tgr, backend="distributed", program=prog)

@@ -68,6 +68,16 @@ def test_cpu_rehearsal_checks_every_run_and_is_not_a_smoke_run(no_card):
         (p, f) for p in programs for f in ("dense", "auto")}
     assert all(d["gather_elems"] > 0 for d in dist if "frontier" in d)
     assert "[dist]" in r.stdout
+    rows = [json.loads(line) for line in r.stdout.splitlines()
+            if line.startswith(('  {"grid"', '  {"pods"', '  {"tune"'))]
+    assert [(x.get("grid"), x.get("pods"), x.get("run")) for x in rows[:4]] == [
+        ([1, 1], None, None), ([1, 1], None, "sssp_2d"), ([1, 1], None, "pagerank_2d"),
+        (None, [1, 1], "run_pod_parallel bc")]
+    dense_bc = next(d for d in dist if (d["dist"], d.get("frontier")) == ("bc", "dense"))
+    assert rows[3]["gather_elems"] == dense_bc["gather_elems"]
+    assert rows[2]["max_rel_err_vs_float64"] <= 1e-4
+    assert rows[4]["tune"] == "rmat(8)" and rows[4]["best_ms"] <= rows[4]["default_ms"]
+    assert "[grid]" in r.stdout
 
 
 def load_smoke():
@@ -75,6 +85,13 @@ def load_smoke():
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     return smoke
+
+
+def test_grid_shapes_of_phase_17():
+    smoke = load_smoke()
+    assert smoke.grid_shapes(1) == ([(1, 1)], [(1, 1)])
+    assert smoke.grid_shapes(4) == ([(2, 2), (1, 4), (4, 1)], [(2, 2), (4, 1)])
+    assert smoke.grid_shapes(2) == ([(1, 2), (2, 1)], [(1, 2), (2, 1)])
 
 
 def test_bound_counts_each_operand_once():

@@ -13,6 +13,8 @@ test its timeout, never the suite its time.
 from __future__ import annotations
 
 import datetime
+import hashlib
+import json
 import os
 import pickle
 import tempfile
@@ -138,8 +140,138 @@ def run_gathers(payload, mesh):
             host(rtd.gather(torch.arange(b) % (r + 2) == 0, mesh)))
 
 
+def _meshes(names):
+    """make_mesh(shape, names) per shape, made on first use: every rank
+    runs the same cases in the same order, so every rank creates the same
+    sub-groups in the same order."""
+    from repro_torch.core import dist
+    made = {}
+
+    def get(shape):
+        if shape not in made:
+            made[shape] = dist.make_mesh(shape, names, device="cpu")
+        return made[shape]
+    return get
+
+
+def padded_tile(g, mesh):
+    """This rank's 2-D tile with its whole padded edge row, as the
+    reference's `shard_map` takes it (the library keeps only real edges)."""
+    from repro_torch.core import dist2d
+    host = dist2d.prepare_graph_2d(g, mesh.shape["data"], mesh.shape["model"])
+    tile = dict(dist2d.shard_tile(host, mesh.rank, "cpu"))
+    i, j = divmod(mesh.rank, mesh.shape["model"])
+    for k in ("src_local", "dst_local", "weight", "valid"):
+        row = torch.from_numpy(np.ascontiguousarray(host[k][i, j]))
+        tile[k] = row.long() if k.endswith("_local") else row
+    return tile
+
+
+def run_grid(payload, mesh):
+    """payload: {"graphs": {name: spec}, "cases": [(case_id, graph, (R, C),
+    what, kwargs)]}. `what`: "sssp" / "pagerank" (`dist2d.sssp_2d` /
+    `pagerank_2d`, with the superstep or sweep count), "sssp_padded" /
+    "pagerank_padded" (the tile bodies on the padded tile), "layout" (the
+    own ids gathered over "data", the global gather, the tile's edge
+    count and whether all its edges are real)."""
+    from repro_torch.core import dist2d
+    from repro_torch.core import runtime_dist as rtd
+    graphs = {k: build_graph(v) for k, v in payload["graphs"].items()}
+    grid = _meshes(("data", "model"))
+    out = {}
+    for cid, gname, shape, what, kw in payload["cases"]:
+        g, m = graphs[gname], grid(shape)
+        if what == "sssp":
+            out[cid] = (host(dist2d.sssp_2d(g, m, **kw)), dist2d.sssp_2d.supersteps)
+        elif what == "pagerank":
+            out[cid] = (host(dist2d.pagerank_2d(g, m, **kw)), dist2d.pagerank_2d.iterations)
+        elif what == "sssp_padded":
+            piece, steps = dist2d.sssp_tile(padded_tile(g, m), m, **kw)
+            out[cid] = (host(dist2d.gather_global(piece, m)[: g.num_nodes]), steps)
+        elif what == "pagerank_padded":
+            piece, its = dist2d.pagerank_tile(padded_tile(g, m), m, **kw)
+            out[cid] = (host(dist2d.gather_global(piece, m)[: g.num_nodes]), its)
+        elif what == "layout":
+            tile = dist2d.prepare(g, m)
+            out[cid] = dict(
+                gathered=host(rtd.gather(tile["own_ids"], m.axis("data"))),
+                whole=host(dist2d.gather_global(tile["own_ids"], m)),
+                edges=int(tile["valid"].shape[0]), all_real=bool(tile["valid"].all()),
+                coords=(m.axis("data").rank, m.axis("model").rank))
+    return out
+
+
+def run_pods(payload, mesh):
+    """payload: {"graphs": {...}, "cases": [(case_id, graph, (pods, data),
+    sources)]}: `dist.run_pod_parallel` of bc, and each pod's slice run
+    alone on the "data" axis (every rank runs every slice), returning its
+    `_gather_elems`; a source set that does not divide the pods returns
+    the ValueError's message."""
+    from repro_torch.core import compile_bundled, dist
+    graphs = {k: build_graph(v) for k, v in payload["graphs"].items()}
+    pods = _meshes(("pod", "data"))
+    prog = compile_bundled("bc", backend="distributed")
+    out = {}
+    for cid, gname, shape, srcs in payload["cases"]:
+        g, m = graphs[gname], pods(shape)
+        if len(srcs) % shape[0]:
+            try:
+                dist.run_pod_parallel(prog, g, m, srcs)
+            except ValueError as e:
+                out[cid] = str(e)
+            continue
+        res = {k: host(v) for k, v in dist.run_pod_parallel(prog, g, m, srcs).items()}
+        k = len(srcs) // shape[0]
+        alone = prog.bind(g, mesh=m.axis("data"))
+        res["per_pod_elems"] = [float(alone(sourceSet=srcs[p * k:(p + 1) * k])["_gather_elems"])
+                                for p in range(shape[0])]
+        out[cid] = res
+    return out
+
+
+def digest_cost(sched: dict, rank: int) -> float:
+    """A deterministic measure that differs from rank to rank: one byte of
+    a digest of the schedule's dict, picked by the rank (`hash()` of a
+    string differs between spawned processes, a digest does not)."""
+    h = hashlib.sha256(json.dumps(sched, sort_keys=True).encode()).digest()
+    return 1.0 + h[rank] / 256.0
+
+
+def run_tune(payload, mesh):
+    """payload: {"graph": spec, "store": path, "budget": n}: distributed
+    sssp tuned twice into one store under `digest_cost` (the second call
+    must be a store hit), counting this rank's store writes; then the
+    winner's sssp from 0."""
+    from repro_torch.autotune import TuningStore, autotune, schedule_to_dict
+    from repro_torch.core import compile_bundled
+    g = build_graph(payload["graph"])
+    saves = []
+    save = TuningStore.save
+
+    def counted(self, **kw):
+        saves.append(1)
+        return save(self, **kw)
+
+    def measure(bound, params):
+        return digest_cost(schedule_to_dict(bound.program.schedule), mesh.rank)
+    prog = compile_bundled("sssp", backend="distributed")
+    TuningStore.save = counted
+    try:
+        first = autotune(prog, g, budget=payload["budget"], seed=0, measure=measure,
+                         store=payload["store"], mesh=mesh)
+        again = autotune(prog, g, budget=payload["budget"], seed=0, measure=measure,
+                         store=payload["store"], mesh=mesh)
+    finally:
+        TuningStore.save = save
+    return dict(record=first.record.to_dict(), schedule=schedule_to_dict(first.schedule),
+                from_store=(first.from_store, again.from_store),
+                again=schedule_to_dict(again.schedule), saves=len(saves),
+                dist=host(first.program.bind(g, mesh=mesh)(src=0)["dist"]))
+
+
 def run_cases(payload: dict, mesh) -> dict:
-    """Each section of the payload ("programs", "exchanges", "gathers"),
-    in that order on every rank."""
-    jobs = {"programs": run_programs, "exchanges": run_exchanges, "gathers": run_gathers}
+    """Each section of the payload ("programs", "exchanges", "gathers",
+    "grid", "pods", "tune"), in that order on every rank."""
+    jobs = {"programs": run_programs, "exchanges": run_exchanges, "gathers": run_gathers,
+            "grid": run_grid, "pods": run_pods, "tune": run_tune}
     return {k: jobs[k](payload[k], mesh) for k in jobs if k in payload}
