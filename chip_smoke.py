@@ -4,7 +4,8 @@
     python3 chip_smoke.py                          # the smoke run: one card, RMAT scale 22
     python3 chip_smoke.py --trace                  # ... and where each run's time goes
     python3 chip_smoke.py --scale 10 --device cpu  # rehearsal of the plain versions
-    torchrun --nproc-per-node 4 chip_smoke.py --dist-only   # phases 16 and 17 on 4 cards
+    torchrun --nproc-per-node 4 chip_smoke.py --dist-only   # phases 16, 17 and 19 on 4 cards
+    torchrun --nproc-per-node 4 chip_smoke.py --dist-only train   # phase 19 alone
 
 Phases, each printed with its own seconds; any failure exits non-zero:
 
@@ -182,11 +183,46 @@ graph:
                rank's schedule and record the same (an all-gather of a
                digest), the winner's dist equal to `cuda`'s.
 
-`--dist-only` runs the graph, its `cuda` baselines and phases 16 and 17
-alone; under `torchrun --nproc-per-node 4 chip_smoke.py --dist-only` (one
-card a rank, NCCL) phase 17 takes the grids (2, 2), (1, 4) and (4, 1) and
-the pods (2, 2) and (4, 1), a pod count above 1 holding `_gather_elems` to
-the sum of each pod's slice run alone; only rank 0 prints.
+`--dist-only` runs the graph, its `cuda` baselines and phases 16, 17 and
+19 alone (`--dist-only train`: phase 19 alone); under `torchrun
+--nproc-per-node 4 chip_smoke.py --dist-only` (one card a rank, NCCL)
+phase 17 takes the grids (2, 2), (1, 4) and (4, 1) and the pods (2, 2)
+and (4, 1), a pod count above 1 holding `_gather_elems` to the sum of
+each pod's slice run alone; only rank 0 prints.
+
+Phase 18 runs after phase 15, phase 19 only under --dist-only:
+
+ 18. train   — qwen2.5-3b at full width and depth (bf16, seeded init)
+               trained through launch.train's pieces: 5 steps of seq
+               2,048, global batch 8 in 4 microbatches, remat,
+               impl="ref"; every loss finite, state.step == 5, every
+               matrix moved; it prints seconds a step (steps 2 to 5),
+               tokens/s, 6·N·T over the step time against the bf16 peak
+               and the peak memory above held, beside nvidia-smi's name
+               and power limit. Then crash and resume at full width with
+               2 layers: 3 steps straight against 2, a checkpoint on
+               disk, a restore into a fresh model and 1 step (loss at
+               rel 1e-4, parameters within 2.5·lr + 2^-7·|p|: bf16, and
+               the embedding backward adds with atomics; m and v within
+               0.1 of the straight run's, leaf by leaf), printing the
+               bytes written and the save and restore seconds; one f32
+               smoke step on the card against the CPU's from the same
+               weights (loss and grad norm at rel 1e-4); and
+               impl="kernel" under grad must raise (flash has no
+               backward), launching nothing. It launches no kernel of
+               the port;
+ 19. train-dist — qwen2.5-3b at full width with 4 layers, sharded by
+               launch.sharding (each rank holds its block of every
+               sharded parameter, m and v): 3 steps on mesh (2, 2) and a
+               checkpoint, then from it 2 steps on (4, 1) and 2 on
+               (1, 4), and an unbroken (2, 2) run of 5 steps (at one
+               rank (1, 1) each); losses at rel 1e-4 of the unbroken
+               run's, the resumed runs' m and v at step 5 within 0.1 of
+               its (gathered, leaf by leaf), every rank's held bytes of
+               params + m + v equal to the specs' arithmetic; then 3
+               steps on (2, 2) at full depth (36 layers) for its peak
+               and step times; rank 0 prints the held bytes, the peaks
+               and every rank's step times.
 
 Phase 15 runs last, after phase 10:
 
@@ -215,16 +251,18 @@ Phase 15 runs last, after phase 10:
 
 With --trace, phase 12 also traces one lone sssp query and one coalesced
 sweep (B = 32), and phase 13 one sssp refresh, in phase 7's format, and
-phase 15 one prefill of each family (xlstm's at 512 tokens).
+phase 15 one prefill of each family (xlstm's at 512 tokens), and phase 18
+a sixth train step.
 
 The line before the last is {"kernels": [...]} (ell_spmv's two semirings,
 reported by the sweep that the main path runs, with the launches of
 phases 5, 11, 12 and 13, flash_attention.bf16 with the launches of
 phases 9 and 15, and tc_matmul.f32); the last line is {"ok": true,
 "device": {...}}. Without a CUDA device the run fails; a `--device cpu`
-rehearsal runs phases 3, 5, 6 and 8 to 17 with the plain versions at smoke
-sizes (the LMs' smoke configs, a 256-token prefill (128 in phase 15),
-RMAT --scale for the graph phases, RMAT 8 for tc), prints no result line
+rehearsal runs phases 3, 5, 6, 8 to 17 and 18 with the plain versions at
+smoke sizes (the LMs' smoke configs, a 256-token prefill (128 in phase
+15), RMAT --scale for the graph phases, RMAT 8 for tc, phase 18 at seq
+64 without its card-against-CPU and flash checks), prints no result line
 and exits 3: it is not a smoke run.
 """
 from __future__ import annotations
@@ -2365,37 +2403,426 @@ def tc_phase(seed, dev, on_card, scale, trace):
                 plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
 
 
+# --------------------------------------------------------------------------
+# train: the LM training path (phase 18 on one card, phase 19 across ranks)
+# --------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen2.5-3b"
+# (seq, global batch, microbatches, steps, lr): the card's run and the rehearsal's
+TRAIN_RUN = dict(seq=2048, global_batch=8, microbatches=4, steps=5, lr=1e-3)
+TRAIN_REHEARSAL = dict(seq=64, global_batch=8, microbatches=4, steps=5, lr=1e-3)
+RESUME_LAYERS = 2             # crash and resume at full width, 2 layers
+DIST_LAYERS = 4               # phase 19: full width, 4 layers
+DIST_RUN = dict(seq=2048, global_batch=8, microbatches=2, steps=5, resume_at=3, lr=1e-3)
+DIST_REHEARSAL = dict(DIST_RUN, seq=64)
+DEEP_STEPS = 3                # phase 19 also times (2, 2) at full depth: its peak and steps
+# Two bf16 runs of the same steps agree on their losses within this
+# (relative): a sharded step groups its rows' gradient sums otherwise, and
+# the embedding backward adds with atomics, so parameters differ by a bf16
+# ulp (2^-8 relative) here and there from the first step on. Read on the
+# card: phase 18's resume equal to the straight run bitwise, phase 19's
+# meshes within 6.6e-6 of each other and of the unbroken run
+TRAIN_LOSS_RTOL = 1e-4
+# ... and on m and v, leaf by leaf, within this distance |got - want| /
+# |want| (the largest over leaves). Read by tests/test_torch_launch.py::
+# test_resumed_moments_match_the_unbroken_run on a 4-layer bf16 smoke
+# model over 4 gloo ranks, where a bf16 ulp weighs most: an unbroken run
+# on another mesh lies 2.6e-2 away, a resume 1.1e-2, and a restore whose
+# m and v are zeroed 0.96 (its next loss within 2e-5 of the right one)
+MOMENT_RTOL = 0.1
+# the card's f32 step against the CPU's on the same weights
+CARD_VS_CPU_RTOL = 1e-4
+
+
+def bf16_params_close(got, want, lr):
+    """Largest excess of |got - want| over 2.5·lr + 2^-7·|want| (<= 0: they
+    agree): one AdamW step moves an element by about ±lr, so a near-zero
+    gradient whose sign differs between two runs moves it 2·lr the other
+    way, and bf16 rounds the result to 2^-8 of its size."""
+    worst = float("-inf")
+    for n, w in want.items():
+        g, w = got[n].detach().float(), w.float()
+        worst = max(worst, float(((g - w).abs() - (2.5 * lr + 2 ** -7 * w.abs())).max()))
+    return worst
+
+
+def moments_apart(got, want):
+    """The largest relative distance |got - want| / |want| (Frobenius)
+    between two optimizer states' m and v (group → name → tensor), leaf
+    by leaf; an all-zero leaf must be matched exactly."""
+    worst = 0.0
+    for group in ("m", "v"):
+        for n, w in want[group].items():
+            w = w.float()
+            d = float((got[group][n].to(w.device).float() - w).norm())
+            ref = float(w.norm())
+            worst = max(worst, d / ref if ref else (0.0 if d == 0 else float("inf")))
+    return worst
+
+
+def smi_line(on_card):
+    if not on_card:
+        return "cpu (rehearsal)"
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def train_phase(seed, dev, on_card, trace=False):
+    """Phase 18: qwen2.5-3b trained at full width and depth through
+    launch.train's pieces (5 steps, seq 2048, global batch 8 in 4
+    microbatches, remat, impl="ref"); crash and resume at full width with
+    2 layers through a checkpoint on disk; one f32 smoke step on the card
+    against the CPU's; and the flash kernel refusing to run under grad.
+    With `trace`, a sixth step under the profiler."""
+    import copy
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import train as lt
+    from repro_torch.models import build
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import init_state, make_train_step
+    knobs = TRAIN_RUN if on_card else TRAIN_REHEARSAL
+    seq, gb, mb, steps, lr = (knobs[k] for k in ("seq", "global_batch", "microbatches",
+                                                 "steps", "lr"))
+    cfg = ARCHS[TRAIN_ARCH] if on_card else ARCHS[TRAIN_ARCH].smoke()
+    card = smi_line(on_card)
+    if on_card:
+        torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() if on_card else 0
+    dc = lt.data_config(cfg, seq, gb)
+
+    # 1. the full run
+    t = time.perf_counter()
+    model = build(cfg, device=dev, seed=seed)
+    state = init_state(model)
+    step_fn = make_train_step(model, lt.optimizer_config(cfg, steps, lr), microbatches=mb,
+                              impl="ref", remat=True)
+    sync(on_card)
+    build_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in model.parameters())
+    with torch.no_grad():
+        before = {n: float(p.float().abs().sum()) for n, p in state.params.items()}
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for i in range(steps):
+        t = time.perf_counter()
+        state, metrics = step_fn(state, lt.batch_for(cfg, dc, i, dev))
+        losses.append(float(metrics["loss"]))        # waits for the step
+        secs.append(time.perf_counter() - t)
+    peak = (torch.cuda.max_memory_allocated() - held) if on_card else None
+    with torch.no_grad():
+        moved = {n for n, p in state.params.items() if float(p.float().abs().sum()) != before[n]}
+    # every matrix must move; a norm scale of 1.0 may not, since an update
+    # of lr = 1e-3 is below half a bf16 ulp there
+    still = [n for n, p in state.params.items() if p.ndim >= 2 and n not in moved]
+    step_s = sum(secs[1:]) / len(secs[1:])
+    tokens = gb * seq
+    info = dict(train="full", model=cfg.name, parameters=n_params, layers=cfg.n_layers,
+                d_model=cfg.d_model, dtype=cfg.dtype, seq=seq, global_batch=gb,
+                microbatches=mb, remat=True, impl="ref", card=card, build_s=build_s,
+                losses=losses, step_s=secs, step_s_mean_2_to_5=step_s,
+                tokens_per_s=tokens / step_s, model_flops_per_step=6 * n_params * tokens,
+                mfu_vs_bf16_peak=6 * n_params * tokens / step_s / BF16_OPS_PER_S,
+                bf16_peak_ops_per_s=BF16_OPS_PER_S, peak_above_held_bytes=peak,
+                held_before_bytes=held if on_card else None,
+                grad_norm=float(metrics["grad_norm"]), lr=float(metrics["lr"]),
+                params_moved=f"{len(moved)}/{len(before)}")
+    print("  " + json.dumps(info), flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train: non-finite loss in {losses}")
+    if int(state.step) != steps:
+        fail(f"train: state.step is {int(state.step)}, not {steps}")
+    if still:
+        fail(f"train: the matrices {still[:5]} did not move")
+    if trace:
+        batch = lt.batch_for(cfg, dc, steps, dev)
+        tr = trace_run(lambda: step_fn(state, batch), top=16)
+        tr.pop("kernels")
+        print("  " + json.dumps(dict(call="train step", untraced_ms=step_s * 1e3, **tr)),
+              flush=True)
+    del model, state, step_fn, metrics
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # 2. crash and resume at full width, RESUME_LAYERS layers
+    cfg2 = dataclasses.replace(cfg, n_layers=RESUME_LAYERS)
+    oc = lt.optimizer_config(cfg2, 3, lr)
+
+    def fresh(s):
+        m = build(cfg2, device=dev, seed=s)
+        return m, init_state(m), make_train_step(m, oc, microbatches=mb, impl="ref")
+
+    _, straight, step = fresh(seed)
+    for i in range(3):
+        straight, ms = step(straight, lt.batch_for(cfg2, dc, i, dev))
+    want_loss = float(ms["loss"])
+    want = {n: p.detach().clone() for n, p in straight.params.items()}
+    want_opt = {g: {n: t.clone() for n, t in straight.opt[g].items()} for g in ("m", "v")}
+    del straight, step
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt-")
+    try:
+        _, state, step = fresh(seed)
+        for i in range(2):
+            state, _ = step(state, lt.batch_for(cfg2, dc, i, dev))
+        sync(on_card)
+        t = time.perf_counter()
+        path = ckpt.save(d, 2, state)
+        save_s = time.perf_counter() - t
+        written = dir_bytes(path)
+        del state, step                                   # "crash"
+        _, like, step = fresh(seed + 1)
+        t = time.perf_counter()
+        state = ckpt.restore(d, ckpt.latest_step(d), like)
+        sync(on_card)
+        restore_s = time.perf_counter() - t
+        state, mr = step(state, lt.batch_for(cfg2, dc, 2, dev))
+        excess = bf16_params_close(state.params, want, float(mr["lr"]))
+        apart = moments_apart(state.opt, want_opt)
+        resume = dict(train="crash-and-resume", layers=RESUME_LAYERS, card=card,
+                      straight_loss_3=want_loss, resumed_loss_3=float(mr["loss"]),
+                      checkpoint_bytes=written, save_s=save_s, restore_s=restore_s,
+                      param_excess_over_bf16_tolerance=excess, moments_apart=apart,
+                      disk_free_bytes=shutil.disk_usage(d).free)
+        print("  " + json.dumps(resume), flush=True)
+        if not math.isclose(resume["resumed_loss_3"], want_loss, rel_tol=TRAIN_LOSS_RTOL):
+            fail(f"train: resumed loss {resume['resumed_loss_3']} vs straight {want_loss}")
+        if excess > 0:
+            fail(f"train: resumed parameters exceed the bf16 tolerance by {excess}")
+        if not apart <= MOMENT_RTOL:
+            fail(f"train: resumed m and v lie {apart} from the straight run's")
+        del state, step, like, want, want_opt
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if not on_card:
+        return dict(info, resume=resume)
+
+    # 3. one f32 smoke step on the card against the same step on the CPU
+    cfg32 = dataclasses.replace(ARCHS[TRAIN_ARCH].smoke(), dtype="float32")
+    dc32 = lt.data_config(cfg32, 64, 8)
+    oc32 = lt.optimizer_config(cfg32, 10, lr)
+    cpu_model = build(cfg32, device="cpu", seed=seed)
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    out = []
+    for m, where in ((cpu_model, "cpu"), (card_model, dev)):
+        _, met = make_train_step(m, oc32, microbatches=2)(init_state(m),
+                                                         lt.batch_for(cfg32, dc32, 0, where))
+        out.append({k: float(v) for k, v in met.items()})
+    versus = dict(train="card-vs-cpu", model=cfg32.name, dtype="float32", cpu=out[0],
+                  card=out[1], card_name=card)
+    print("  " + json.dumps(versus), flush=True)
+    for k in ("loss", "grad_norm"):
+        if not math.isclose(out[0][k], out[1][k], rel_tol=CARD_VS_CPU_RTOL):
+            fail(f"train: the card's {k} {out[1][k]} vs the CPU's {out[0][k]}")
+
+    # 4. the flash kernel has no backward: impl="kernel" under grad raises
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    launches = flash_attention.launches
+    try:
+        make_train_step(card_model, oc32, impl="kernel")(
+            init_state(card_model), lt.batch_for(cfg32, dc32, 0, dev))
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        print(f"  impl='kernel' under grad raises: {str(e)[:100]}...", flush=True)
+    else:
+        fail("train: impl='kernel' with grad enabled ran instead of raising")
+    if flash_attention.launches != launches:
+        fail("train: the refused kernel call counted a launch")
+    return dict(info, resume=resume, card_vs_cpu=versus)
+
+
+def train_dist_phase(seed, on_card):
+    """Phase 19, inside `process_group`: qwen2.5-3b at full width with
+    DIST_LAYERS layers (smoke size in the rehearsal), sharded by
+    launch.sharding on meshes of the world's ranks. At four ranks: 3 steps
+    on (2, 2) and a checkpoint, then from it 2 steps on (4, 1) and 2 on
+    (1, 4), and an unbroken (2, 2) run of 5 steps; at one rank (1, 1) for
+    each. Losses agree across meshes and with the unbroken run, so do the
+    resumed runs' m and v at the last step (gathered, leaf by leaf), and
+    every rank holds exactly the bytes of params + m + v its specs give.
+    Then DEEP_STEPS steps on the first mesh at the config's full depth,
+    for the peak and step times of the sharded path there."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import train as lt
+    from repro_torch.models import build
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import init_state, make_train_step
+    knobs = DIST_RUN if on_card else DIST_REHEARSAL
+    seq, gb, mb, steps, cut, lr = (knobs[k] for k in ("seq", "global_batch", "microbatches",
+                                                      "steps", "resume_at", "lr"))
+    base = ARCHS[TRAIN_ARCH] if on_card else ARCHS[TRAIN_ARCH].smoke()
+    cfg = dataclasses.replace(base, n_layers=DIST_LAYERS)
+    world, rank = tdist.get_world_size(), tdist.get_rank()
+    dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))) if on_card else "cpu"
+    show = shower(rank)
+    grid = {4: ("2,2", "4,1", "1,4"), 1: ("1,1",) * 3}.get(world)
+    if grid is None:
+        fail(f"train-dist runs on 1 or 4 ranks, not {world}")
+    oc = lt.optimizer_config(cfg, steps, lr)      # one schedule for every run
+    dc = lt.data_config(cfg, seq, gb)
+    card = smi_line(on_card)
+    d = [tempfile.mkdtemp(prefix="chip_smoke_dist-") if rank == 0 else None]
+    tdist.broadcast_object_list(d, src=0)
+    d = d[0]
+
+    def whole_moments(state):
+        """m and v gathered leaf by leaf (a collective on every rank); rank 0
+        keeps them, on the host."""
+        out = {"m": {}, "v": {}}
+        for group in out:
+            for n, t in state.opt[group].items():
+                w = state.layout.gather(n, t)
+                if rank == 0:
+                    out[group][n] = w.cpu()
+        return out
+
+    def train(spec, start, stop, restore=False, save=False, keep=None, against=None,
+              c=cfg):
+        mesh = lt.make_mesh(spec, device=dev)
+        model = build(c, device=dev, seed=seed)
+        whole = {n: (p.numel(), p.element_size()) for n, p in model.net.named_parameters()}
+        state = lt.shard(init_state(model), mesh, gb)
+        lay = state.layout
+        if restore:
+            state = ckpt.restore(d, cut, state, shardings=lay)
+        step_fn = make_train_step(model, oc, microbatches=mb, impl="ref")
+        rows = lay.rows(gb)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        losses, secs = [], []
+        for i in range(start, stop):
+            t = time.perf_counter()
+            state, metrics = step_fn(state, lt.batch_for(c, dc, i, dev, rows))
+            losses.append(float(metrics["loss"]))
+            secs.append(time.perf_counter() - t)
+        out = dict(mesh=spec, steps=[start, stop], losses=losses, step_s=secs,
+                   held_bytes=sh.held_bytes(state),
+                   spec_bytes=sum(n // math.prod(sh._axis_size(e, mesh.shape)
+                                                 for e in lay.specs[name]) * (size + 8)
+                                  for name, (n, size) in whole.items()),
+                   whole_bytes=sum(n * (size + 8) for n, size in whole.values()),
+                   peak_bytes=torch.cuda.max_memory_allocated(dev) if on_card else None,
+                   rows=[rows.start, rows.stop])
+        if keep is not None or against is not None:
+            moments = whole_moments(state)
+            if keep is not None:
+                keep.update(moments)
+            elif rank == 0:
+                out.update(moments_apart=moments_apart(moments, against))
+            del moments
+        if save:
+            t = time.perf_counter()
+            path = ckpt.save(d, stop, state)
+            out.update(save_s=time.perf_counter() - t,
+                       checkpoint_bytes=dir_bytes(path) if rank == 0 else None)
+        del model, state, step_fn
+        if on_card:
+            torch.cuda.empty_cache()
+        return out
+
+    kept = {}
+    try:
+        runs = {"unbroken": train(grid[0], 0, steps, keep=kept),
+                "first": train(grid[0], 0, cut, save=True),
+                "resumed-a": train(grid[1], cut, steps, restore=True, against=kept),
+                "resumed-b": train(grid[2], cut, steps, restore=True, against=kept)}
+        del kept
+        deep = train(grid[0], 0, DEEP_STEPS, c=dataclasses.replace(cfg, n_layers=base.n_layers))
+    finally:
+        tdist.barrier()
+        if rank == 0:
+            shutil.rmtree(d, ignore_errors=True)
+    every = [None] * world
+    tdist.all_gather_object(every, dict(runs, full_depth=deep))
+    show(dict(train_dist="runs", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+              seq=seq, global_batch=gb, microbatches=mb, world=world, card=card,
+              runs={k: {x: v[x] for x in ("mesh", "steps", "losses", "held_bytes",
+                                          "spec_bytes", "whole_bytes", "peak_bytes",
+                                          "save_s", "checkpoint_bytes", "moments_apart")
+                                 if x in v}
+                    for k, v in runs.items()},
+              step_s_by_rank=[{k: v["step_s"] for k, v in r.items()} for r in every],
+              peak_bytes_by_rank=[{k: v["peak_bytes"] for k, v in r.items()} for r in every],
+              full_depth=dict(layers=base.n_layers, mesh=deep["mesh"], losses=deep["losses"],
+                              held_bytes=deep["held_bytes"], spec_bytes=deep["spec_bytes"],
+                              whole_bytes=deep["whole_bytes"])))
+    unbroken = runs["unbroken"]["losses"]
+    for name, r in runs.items():
+        if r["held_bytes"] != r["spec_bytes"]:
+            fail(f"train-dist {name} ({r['mesh']}) rank {rank}: holds {r['held_bytes']} "
+                 f"bytes, the specs give {r['spec_bytes']}")
+        want = unbroken[r["steps"][0]:r["steps"][1]]
+        if not all(math.isfinite(x) and math.isclose(x, w, rel_tol=TRAIN_LOSS_RTOL)
+                   for x, w in zip(r["losses"], want)):
+            fail(f"train-dist {name} ({r['mesh']}): losses {r['losses']} vs unbroken {want}")
+    for name in ("resumed-a", "resumed-b"):
+        apart = every[0][name]["moments_apart"]
+        if not apart <= MOMENT_RTOL:
+            fail(f"train-dist {name} ({runs[name]['mesh']}): m and v at step {steps} lie "
+                 f"{apart} from the unbroken run's")
+    if deep["held_bytes"] != deep["spec_bytes"] or not all(map(math.isfinite, deep["losses"])):
+        fail(f"train-dist full depth ({deep['mesh']}) rank {rank}: holds {deep['held_bytes']} "
+             f"bytes (the specs give {deep['spec_bytes']}), losses {deep['losses']}")
+    for r in every:
+        r.pop("full_depth")
+        if [v["losses"] for v in r.values()] != [v["losses"] for v in runs.values()]:
+            fail("train-dist: ranks disagree on the losses")
+    return runs
+
+
 def dist_only(args, on_card):
-    """Phases 16 and 17 alone on rmat(--scale): every rank builds the graph
-    on its card (cuda:LOCAL_RANK under torchrun) and its cuda results, then
-    runs the phases over all ranks in one process group."""
+    """Phases 16, 17 and 19 alone (`--dist-only train`: phase 19 alone):
+    every rank builds rmat(--scale) on its card (cuda:LOCAL_RANK under
+    torchrun) and its cuda results, then runs the phases over all ranks in
+    one process group."""
     import torch
     from repro_torch.graph import rmat
     t0 = time.perf_counter()
     dev = args.device
+    graphs = args.dist_only == "all"
     if on_card:
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         torch.cuda.set_device(dev)
         if int(os.environ.get("RANK", 0)) == 0:
-            print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                                  "--format=csv,noheader"], capture_output=True, text=True,
-                                 check=True, timeout=60).stdout.strip())
-    g = rmat(args.scale, edge_factor=16, seed=args.seed, device=dev)
-    srcs = pick_sources(g, SET_SOURCES, args.seed)
-    want = dist_baselines(g, srcs, on_card)
-    phase("graph+cuda", t0, f"N={g.num_nodes} E={g.num_edges}")
+            print(smi_line(on_card))
+    if graphs:
+        g = rmat(args.scale, edge_factor=16, seed=args.seed, device=dev)
+        srcs = pick_sources(g, SET_SOURCES, args.seed)
+        want = dist_baselines(g, srcs, on_card)
+        phase("graph+cuda", t0, f"N={g.num_nodes} E={g.num_edges}")
     ranks = os.environ.get("WORLD_SIZE", 1)
     with process_group(on_card):
+        if graphs:
+            t0 = time.perf_counter()
+            dist_infos = dist_phase(g, want, srcs, on_card, args.seed, 14 if on_card else 8,
+                                    on_card and args.trace)
+            phase("dist", t0, f"ranks {ranks}: backend='distributed' (dense, auto) == cuda; "
+                  "distributed tc == scipy")
+            t0 = time.perf_counter()
+            grid_phase(g, want, srcs, on_card, args.seed, 16 if on_card else args.scale,
+                       dist_infos)
+            phase("grid", t0, f"ranks {ranks}: sssp_2d == cuda sssp, pagerank_2d == float64 "
+                  "iteration, pod bc == cuda bc, distributed autotune agrees across ranks")
+            del g, want
         t0 = time.perf_counter()
-        dist_infos = dist_phase(g, want, srcs, on_card, args.seed, 14 if on_card else 8,
-                                on_card and args.trace)
-        phase("dist", t0, f"ranks {ranks}: backend='distributed' (dense, auto) == cuda; "
-              "distributed tc == scipy")
-        t0 = time.perf_counter()
-        grid_phase(g, want, srcs, on_card, args.seed, 16 if on_card else args.scale,
-                   dist_infos)
-        phase("grid", t0, f"ranks {ranks}: sssp_2d == cuda sssp, pagerank_2d == float64 "
-              "iteration, pod bc == cuda bc, distributed autotune agrees across ranks")
+        train_dist_phase(args.seed, on_card)
+        phase("train-dist", t0, f"ranks {ranks}: sharded qwen2.5-3b, resumed on other meshes "
+              "== unbroken run; held bytes == the specs'")
     if int(os.environ.get("RANK", 0)) == 0:
         print("dist-only run finished: not a smoke run")
 
@@ -2408,9 +2835,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", action="store_true",
                     help="profile one more call of each cuda run (phase 7)")
-    ap.add_argument("--dist-only", action="store_true",
-                    help="the graph, its cuda results and phases 16 and 17 alone (under torchrun: "
-                         "one rank a card); not a smoke run")
+    ap.add_argument("--dist-only", nargs="?", const="all", choices=("all", "train"),
+                    help="the graph, its cuda results and phases 16, 17 and 19 alone ('train': "
+                         "phase 19 alone; under torchrun: one rank a card); not a smoke run")
     args = ap.parse_args(argv)
     on_card = args.device == "cuda"
 
@@ -2593,6 +3020,15 @@ def main(argv=None):
     phase("lm-families", t0, "; ".join(
         f"{f['model']} prefill {f['seq']} {f['prefill_s']:.3f} s, "
         f"{f['serve']['ms_per_decode_step']:.3f} ms per decode step" for f in families))
+
+    # 18. train
+    t0 = time.perf_counter()
+    trained = train_phase(args.seed, dev, on_card, on_card and args.trace)
+    phase("train", t0, f"{trained['model']} x{trained['layers']} layers: "
+          f"{trained['step_s_mean_2_to_5']:.3f} s per step, "
+          f"{trained['tokens_per_s']:.0f} tokens/s, 6NT at "
+          f"{100 * trained['mfu_vs_bf16_peak']:.2f}% of the bf16 peak; resume == straight"
+          + ("; card == cpu; flash refuses grad" if on_card else ""))
 
     if not on_card:
         print("rehearsal finished: plain versions on the CPU — not a smoke run")

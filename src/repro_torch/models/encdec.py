@@ -5,7 +5,8 @@ stub: the encoder consumes precomputed frame embeddings [B, S, d]. The
 decoder is a causal stack with cross-attention into the encoder output.
 Decoding keeps a self-attention KV cache per layer and the encoder output;
 as in the reference, each step projects the cross K and V from
-`cache["enc_out"]` again.
+`cache["enc_out"]` again. With `remat` and grad enabled, each encoder and
+decoder layer body runs under `layers.remat_call`.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 from torch import nn
 
 from .attention import Attention, attention_block, attention_decode, init_kv_cache
-from .layers import MLP, RMSNorm, embed_init
+from .layers import MLP, RMSNorm, embed_init, remat_call
 
 
 def _dt(cfg) -> torch.dtype:
@@ -82,9 +83,12 @@ class EncDec(nn.Module):
         x = embeds.to(_dt(cfg))
         b, s = x.shape[:2]
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
-        for lp in self.enc_layers:
+
+        def body(x, lp):
             x = x + lp.attn(lp.ln1(x, cfg.norm_eps), positions, causal=False, impl=impl)
-            x = x + lp.mlp(lp.ln2(x, cfg.norm_eps))
+            return x + lp.mlp(lp.ln2(x, cfg.norm_eps))
+        for lp in self.enc_layers:
+            x = remat_call(remat, body, x, lp)
         return self.ln_enc(x, cfg.norm_eps)
 
     def decode_train(self, tokens, enc_out, *, impl="ref", remat=True, last_only=False):
@@ -94,10 +98,13 @@ class EncDec(nn.Module):
         x = self.embed[tokens]
         b, s = x.shape[:2]
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
-        for lp in self.dec_layers:
+
+        def body(x, lp):
             x = x + lp.self_attn(lp.ln1(x, cfg.norm_eps), positions, causal=True, impl=impl)
             x = lp.cross(x, enc_out, impl, cfg)
-            x = x + lp.mlp(lp.ln2(x, cfg.norm_eps))
+            return x + lp.mlp(lp.ln2(x, cfg.norm_eps))
+        for lp in self.dec_layers:
+            x = remat_call(remat, body, x, lp)
         x = self.ln_f(x, cfg.norm_eps)
         if last_only:
             x = x[:, -1:]

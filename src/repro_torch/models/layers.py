@@ -3,9 +3,12 @@
 PyTorch counterpart of `repro.models.layers`. Weights keep the reference's
 `[in, out]` layout (`x @ W`), so a parameter carries over from the JAX
 tree as a copy. Inits draw from a `torch.Generator` with the reference's
-distributions (not its numbers: the two generators differ). The sharding
-hooks of the reference (`maybe_constrain`, `set_constraint_mesh`) are not
-ported.
+distributions (not its numbers: the two generators differ). `remat_call`
+is the reference's `jax.checkpoint` on a layer body. The reference's
+activation-sharding hooks (`set_constraint_mesh`, `maybe_constrain`) have
+no counterpart: `launch.sharding` splits compute by rows of the batch and
+gathers the weights, so no activation is split over "model" and a
+constraint would have nothing to move.
 """
 from __future__ import annotations
 
@@ -13,6 +16,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+def remat_call(remat: bool, fn, *args):
+    """`fn(*args)`, its activations recomputed in the backward pass
+    (`torch.utils.checkpoint`, non-reentrant) when `remat` is set and grad
+    is enabled: the reference's `jax.checkpoint` on a layer body. Serving
+    under `inference_mode` runs `fn` as it is."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # --- init helpers -------------------------------------------------------------

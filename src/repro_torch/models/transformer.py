@@ -12,8 +12,14 @@ an `nn.ModuleList` walked in Python. Hybrid stacks (zamba2) run the Mamba
 backbone and apply the ONE shared attention block after every
 `attn_every`-th layer, each call site with its own KV cache. xLSTM stacks
 run every mLSTM layer, then every sLSTM layer, as the reference does.
-`remat` is accepted for the reference's signature and has no effect:
-nothing here trains yet.
+With `remat` (the default) and grad enabled, each layer body (a hybrid
+layer with its shared-attention call, an mLSTM layer; not the sLSTM
+blocks, as in the reference) runs under `layers.remat_call`: its
+activations are recomputed in the backward pass instead of kept, the
+reference's `jax.checkpoint` on its scan body. Serving runs under
+`inference_mode`, where it has no effect. The reference's sharding
+constraint on the logits has no counterpart: `launch.sharding` splits
+compute by rows of the batch, not over "model" (ROADMAP, item T2).
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ import torch
 from torch import nn
 
 from .attention import Attention, attention_decode, init_kv_cache
-from .layers import MLP, RMSNorm, dense_init, embed_init
+from .layers import MLP, RMSNorm, dense_init, embed_init, remat_call
 from .moe import MoE
 from .ssm import (MLSTM, SLSTM, Mamba2, mamba2_decode, mamba2_init_state, mlstm_decode,
                   mlstm_init_state, slstm_decode, slstm_init_state)
@@ -128,17 +134,21 @@ class Transformer(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family in ("dense", "moe"):
             for layer in self.layers:
-                x, a = layer(x, positions, impl, cfg)
+                x, a = remat_call(remat, layer, x, positions, impl, cfg)
                 aux = aux + a
         elif cfg.family == "hybrid":
             sites = set(_attn_sites(cfg))
-            for i, layer in enumerate(self.layers):
+
+            def body(x, layer, attn):
                 x = x + layer(x, cfg)
-                if i in sites:
+                if attn:
                     x, _ = self.shared_attn(x, positions, impl, cfg)
+                return x
+            for i, layer in enumerate(self.layers):
+                x = remat_call(remat, body, x, layer, i in sites)
         else:
             for layer in self.mlstm:
-                x = x + layer(x, cfg)
+                x = remat_call(remat, lambda x, layer: x + layer(x, cfg), x, layer)
             for layer in self.slstm:
                 x = x + layer(x, cfg)
         x = self.ln_f(x, cfg.norm_eps)

@@ -33,6 +33,27 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def reference_path(name: str) -> tuple[str, int | None]:
+    """A port parameter name → (the reference's key path, the layer index
+    within its stack, or None): `layers.3.attn.wq` → (`layers/attn/wq`, 3)."""
+    parts = name.split(".")
+    if parts[0] in STACKED:
+        return "/".join([parts[0]] + parts[2:]), int(parts[1])
+    return "/".join(parts), None
+
+
+def leaf_groups(names) -> dict:
+    """reference key path → [(port name, layer index or None)], in the
+    reference's flatten order (sorted paths), layers in index order. The
+    one map between the two trees: the carry-over below, checkpoints,
+    weight decay's rank and the sharding specs all go through it."""
+    groups = {}
+    for name in names:
+        path, idx = reference_path(name)
+        groups.setdefault(path, []).append((name, idx))
+    return {p: sorted(groups[p], key=lambda x: x[1] or 0) for p in sorted(groups)}
+
+
 def from_reference(arrays: dict, cfg, device=None) -> Model:
     """arrays: the reference's parameter tree as nested dicts of numpy
     arrays. Returns the port's model of `cfg` on `device` (None: the card)
@@ -40,25 +61,25 @@ def from_reference(arrays: dict, cfg, device=None) -> Model:
     side or has another shape or dtype."""
     model = build(cfg, device)
     params = dict(model.net.named_parameters())
-    seen = set()
+    groups = leaf_groups(params)
+    leaves = {name.replace(".", "/"): leaf for name, leaf in _flatten(arrays)}
+    extra = sorted(set(leaves) - set(groups))
+    if extra:
+        raise KeyError(f"the port's model has no parameter for {extra}")
+    missing = [n for p in groups if p not in leaves for n, _ in groups[p]]
+    if missing:
+        raise KeyError(f"the reference tree has no value for {missing}")
     with torch.no_grad():
-        for name, leaf in _flatten(arrays):
-            t = _tensor(leaf)
-            group, _, rest = name.partition(".")
-            if group in STACKED:
-                targets = [(f"{group}.{i}.{rest}", t[i]) for i in range(t.shape[0])]
-            else:
-                targets = [(name, t)]
-            for pname, val in targets:
-                if pname not in params:
-                    raise KeyError(f"the port's model has no parameter {pname!r}")
-                p = params[pname]
+        for path, members in groups.items():
+            t = _tensor(leaves[path])
+            stacked = members[0][1] is not None
+            if stacked and t.shape[0] != len(members):
+                raise ValueError(f"{path}: the reference stacks {t.shape[0]} layers, "
+                                 f"the port has {len(members)}")
+            for pname, idx in members:
+                val, p = (t[idx] if stacked else t), params[pname]
                 if tuple(p.shape) != tuple(val.shape) or p.dtype != val.dtype:
                     raise ValueError(f"{pname}: reference {tuple(val.shape)} {val.dtype}, "
                                      f"port {tuple(p.shape)} {p.dtype}")
                 p.copy_(val)
-                seen.add(pname)
-    missing = sorted(set(params) - seen)
-    if missing:
-        raise KeyError(f"the reference tree has no value for {missing}")
     return model

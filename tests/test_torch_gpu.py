@@ -619,3 +619,68 @@ def test_encdec_decode_step_cross_attends_through_the_kernel(cuda):
             assert flash_attention.launches == before + cfg.n_dec_layers
             want, _ = m.decode_step(tok, caches[1], i, impl="ref")
             torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+# --- training on the card ---------------------------------------------------------
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_to_run_under_grad(cuda):
+    """The kernel has no backward: with grad enabled and an operand that
+    requires grad it raises instead of returning an output with no
+    gradient; under no_grad it runs. On the CPU the plain version keeps
+    its autograd."""
+    q, k, v = (torch.randn((2, 128, 64), device=cuda, dtype=torch.bfloat16,
+                           requires_grad=(i == 0)) for i in range(3))
+    before = flash_attention.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q, k, v)
+    assert flash_attention.launches == before
+    with torch.no_grad():
+        flash_attention(q, k, v)
+    assert flash_attention.launches == before + 1
+    flash_attention(q.detach(), k, v)                    # nothing requires grad
+    out = flash_attention(q.detach().cpu().requires_grad_(), k.cpu(), v.cpu())
+    assert out.requires_grad
+
+
+@pytest.mark.gpu
+def test_training_with_the_kernel_raises(cuda):
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    from repro_torch.train import OptimizerConfig, init_state, make_train_step
+    from repro_torch.train.data import DataConfig, batch_at
+    cfg = dataclasses.replace(ARCHS["qwen2.5-3b"].smoke(), dtype="float32")
+    m = build(cfg, device=cuda)
+    batch = batch_at(DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=2), 0, cuda)
+    with pytest.raises(RuntimeError, match="impl='ref'"):
+        make_train_step(m, OptimizerConfig(), impl="kernel")(init_state(m), batch)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_train_step_on_the_card_matches_the_cpu(cuda, microbatches):
+    """One f32 step of the qwen2.5-3b smoke model on the card against the
+    same step on the CPU from the same weights: loss and grad norm at rel
+    1e-4, parameters at atol 2.5·lr (a near-zero gradient may flip sign)."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    from repro_torch.train import OptimizerConfig, init_state, make_train_step
+    from repro_torch.train.data import DataConfig, batch_at
+    cfg = dataclasses.replace(ARCHS["qwen2.5-3b"].smoke(), dtype="float32")
+    oc = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=8)
+    cpu = build(cfg, device="cpu", seed=0)
+    card = copy.deepcopy(cpu).to(cuda)
+    out = []
+    for m, dev in ((cpu, "cpu"), (card, cuda)):
+        state, metrics = make_train_step(m, oc, microbatches=microbatches)(
+            init_state(m), batch_at(dc, 0, dev))
+        out.append((metrics, {n: p.detach().cpu() for n, p in state.params.items()}))
+    for k in ("loss", "grad_norm", "lr"):
+        assert float(out[1][0][k]) == pytest.approx(float(out[0][0][k]), rel=1e-4), k
+    lr = float(out[0][0]["lr"])
+    for n, p in out[0][1].items():
+        torch.testing.assert_close(out[1][1][n], p, atol=2.5 * lr, rtol=0, msg=n)

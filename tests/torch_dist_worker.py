@@ -269,9 +269,116 @@ def run_tune(payload, mesh):
                 dist=host(first.program.bind(g, mesh=mesh)(src=0)["dist"]))
 
 
+def run_train(payload, mesh):
+    """payload: [(case_id, args, kwargs)] of `launch.train.run(*args,
+    device="cpu", **kwargs)`, in order. Each case returns its final loss,
+    its per-step history (loss, held bytes, ...) and what it printed."""
+    import contextlib
+    import io
+    from repro_torch.launch.train import run
+    out = {}
+    for cid, args, kw in payload:
+        history, printed = [], io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            loss = run(*args, device="cpu", history=history, **kw)
+        out[cid] = {"loss": loss, "history": history, "stdout": printed.getvalue()}
+    return out
+
+
+def reduce_case_grad(shape, names, batch_axes, leaf, i, coords):
+    """The gradient a rank at `coords` holds of leaf `i` before reduction:
+    drawn from its coordinates along the batch axes only, since ranks
+    that differ in another axis ran the same rows. A leaf named "*bf16"
+    comes in bfloat16."""
+    key = [int(c) for c, n in zip(coords, names) if n in batch_axes]
+    g = torch.from_numpy(np.random.default_rng([i, *key]).standard_normal(shape)
+                         .astype(np.float32))
+    return g.bfloat16() if leaf.endswith("bf16") else g
+
+
+def run_reduce(payload, mesh):
+    """payload: [(case_id, mesh shape, axis names, batch axes, {leaf:
+    (spec entries, shape)})]. Each case returns this rank's blocks from
+    `Layout.reduce_grads` and the norm `Layout.global_norm` takes of them."""
+    from repro_torch.core import dist
+    from repro_torch.launch import sharding as sh
+    out = {}
+    for cid, shape, names, baxes, leaves in payload:
+        m = dist.make_mesh(shape, names, device="cpu")
+        coords = np.unravel_index(m.rank, shape)
+        lay = sh.named(m, {n: sh.P(*spec) for n, (spec, _) in leaves.items()}, baxes)
+        grads = {n: reduce_case_grad(s, names, baxes, n, i, coords)
+                 for i, (n, (_, s)) in enumerate(leaves.items())}
+        blocks = lay.reduce_grads(grads)
+        out[cid] = {"blocks": {n: host(b) for n, b in blocks.items()},
+                    "norm": float(lay.global_norm(blocks)), "left": len(grads),
+                    "coords": [int(c) for c in coords]}
+    return out
+
+
+def run_moments(payload, mesh):
+    """payload: [(case_id, arch, layers, mesh A, [mesh B, ...], steps,
+    resume_at)]. Trains the arch's smoke config cut to `layers` layers
+    (the sharded path of `launch.train`, its data and schedule): `steps`
+    unbroken on A, and `resume_at` on A with a checkpoint; then on each B
+    `steps` unbroken, resumed from the checkpoint, and resumed with m and
+    v zeroed after the restore. Rank 0 returns, for each B, each run's
+    losses and its largest per-leaf distance |x - u| / |u| of m and v at
+    the last step from the unbroken A run's (gathered)."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import train as lt
+    from repro_torch.models import build
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import init_state, make_train_step
+    out = {}
+    for cid, arch, layers, spec_a, specs_b, steps, cut in payload:
+        cfg = dataclasses.replace(ARCHS[arch].smoke(), n_layers=layers)
+        oc, dc = lt.optimizer_config(cfg, steps, 1e-3), lt.data_config(cfg, 64, 8)
+        d = [tempfile.mkdtemp(prefix="moments-") if mesh.rank == 0 else None]
+        torch.distributed.broadcast_object_list(d, src=0)
+
+        def train(spec, start, restore=False, drop=False, save=False):
+            m = lt.make_mesh(spec, device="cpu")
+            model = build(cfg, device="cpu", seed=0)
+            state = lt.shard(init_state(model), m, 8)
+            if restore:
+                state = ckpt.restore(d[0], cut, state, shardings=state.layout)
+            if drop:
+                for g in ("m", "v"):
+                    for t in state.opt[g].values():
+                        t.zero_()
+            step = make_train_step(model, oc, microbatches=2)
+            losses = []
+            for i in range(start, cut if save else steps):
+                state, met = step(state, lt.batch_for(cfg, dc, i, "cpu",
+                                                      state.layout.rows(8)))
+                losses.append(float(met["loss"]))
+            if save:
+                ckpt.save(d[0], cut, state)
+            whole = {g: {n: state.layout.gather(n, t) for n, t in state.opt[g].items()}
+                     for g in ("m", "v")}
+            return losses, whole
+
+        ref_losses, ref = train(spec_a, 0)
+        train(spec_a, 0, save=True)
+        res = {"unbroken-a": ref_losses}
+        for spec in specs_b:
+            runs = {"unbroken": train(spec, 0), "resumed": train(spec, cut, restore=True),
+                    "dropped": train(spec, cut, restore=True, drop=True)}
+            res[spec] = {name: {"losses": losses, "apart": max(
+                float((whole[g][n] - u).norm() / u.norm())
+                for g in ("m", "v") for n, u in ref[g].items())}
+                for name, (losses, whole) in runs.items()}
+        out[cid] = res if mesh.rank == 0 else None
+    return out
+
+
 def run_cases(payload: dict, mesh) -> dict:
     """Each section of the payload ("programs", "exchanges", "gathers",
-    "grid", "pods", "tune"), in that order on every rank."""
+    "grid", "pods", "tune", "train", "reduce", "moments"), in that order on
+    every rank."""
     jobs = {"programs": run_programs, "exchanges": run_exchanges, "gathers": run_gathers,
-            "grid": run_grid, "pods": run_pods, "tune": run_tune}
+            "grid": run_grid, "pods": run_pods, "tune": run_tune, "train": run_train,
+            "reduce": run_reduce, "moments": run_moments}
     return {k: jobs[k](payload[k], mesh) for k in jobs if k in payload}
