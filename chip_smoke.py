@@ -222,7 +222,31 @@ Phase 18 runs after phase 15, phase 19 only under --dist-only:
                params + m + v equal to the specs' arithmetic; then 3
                steps on (2, 2) at full depth (36 layers) for its peak
                and step times; rank 0 prints the held bytes, the peaks
-               and every rank's step times.
+               and every rank's step times. Then one step of the first
+               mesh at 4 layers under the census of launch.hlo_cost on
+               every rank: rank 0's collective bytes must equal those of
+               the dry run's census of the same cell on a fake world of
+               as many ranks (launch.dryrun, in a process of its own).
+
+Phase 20 runs after phase 18:
+
+ 20. offline — rmat(16) written by graph.io.save_edgelist and read back by
+               load_edgelist onto the card: its edge arrays equal the
+               source's, its node arrays up to the largest id on an edge
+               (the loader takes the node count from it, as the
+               reference's does; the vertices above it must be isolated),
+               with the seconds of each; `python -m repro_torch.analyze
+               --bundled --strict --backend cuda` in a process of its own
+               exits 0 with "0 error(s), 0 warning(s)", and
+               tests/programs_bad/race_cross_write.sp exits 1 with SP101;
+               then one more step of phase 18's cell under the census of
+               launch.hlo_cost on the card, its dot FLOPs and dot bytes
+               equal to the dry run's census of the same cell on the meta
+               device (launch.dryrun.train_census), printing the roofline
+               terms of launch.roofline, phase 18's step time over their
+               bound, 6·N·T over the census FLOPs and the dry run's
+               predicted peak (arguments and temps) beside phase 18's
+               measured peak above held. It launches no kernel of the port.
 
 Phase 15 runs last, after phase 10:
 
@@ -252,17 +276,21 @@ Phase 15 runs last, after phase 10:
 With --trace, phase 12 also traces one lone sssp query and one coalesced
 sweep (B = 32), and phase 13 one sssp refresh, in phase 7's format, and
 phase 15 one prefill of each family (xlstm's at 512 tokens), and phase 18
-a sixth train step.
+a sixth train step. The CUDA caching allocator runs with expandable
+segments (PYTORCH_CUDA_ALLOC_CONF, unless the caller sets it): without
+them phase 15's f32 upcast of deepseek-moe-16b ran out of memory after
+--trace's profiled prefill, on fragmented segments.
 
 The line before the last is {"kernels": [...]} (ell_spmv's two semirings,
 reported by the sweep that the main path runs, with the launches of
 phases 5, 11, 12 and 13, flash_attention.bf16 with the launches of
 phases 9 and 15, and tc_matmul.f32); the last line is {"ok": true,
 "device": {...}}. Without a CUDA device the run fails; a `--device cpu`
-rehearsal runs phases 3, 5, 6, 8 to 17 and 18 with the plain versions at
+rehearsal runs phases 3, 5, 6, 8 to 18 and 20 with the plain versions at
 smoke sizes (the LMs' smoke configs, a 256-token prefill (128 in phase
 15), RMAT --scale for the graph phases, RMAT 8 for tc, phase 18 at seq
-64 without its card-against-CPU and flash checks), prints no result line
+64 without its card-against-CPU and flash checks, phase 20 on rmat(8)),
+prints no result line
 and exits 3: it is not a smoke run.
 """
 from __future__ import annotations
@@ -281,10 +309,18 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
-F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
-BF16_OPS_PER_S = 989e12       # H100 SXM bf16 on the tensor cores, dense
-INT8_OPS_PER_S = 1979e12      # H100 SXM int8 on the tensor cores, dense
+# expandable segments, set before the port's import below loads torch:
+# phase 15's f32 upcast of deepseek-moe-16b (67.5 GB of weights from 33.8 GB
+# of bf16) found no room in the caching allocator's fragmented segments
+# once --trace's profiled prefill ran
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+sys.path.insert(0, os.path.join(HERE, "src"))
+# the H100 SXM's peaks: HBM bytes/s; f32 outside the tensor cores, bf16 and
+# int8 on them, dense
+from repro_torch.launch.roofline import (F32_FLOPS as F32_OPS_PER_S,  # noqa: E402
+                                         HBM_BW as HBM_BYTES_PER_S,
+                                         INT8_OPS as INT8_OPS_PER_S,
+                                         PEAK_FLOPS as BF16_OPS_PER_S)
 SOURCE = "src/repro_torch/kernels/ell_spmv/csrc/ell_spmv.cu"
 REPLACES = "src/repro/kernels/ell_spmv/kernel.py:76"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
@@ -312,7 +348,6 @@ def fail(msg):
 
 
 def import_port():
-    sys.path.insert(0, os.path.join(HERE, "src"))
     import repro_torch
     pkg = os.path.dirname(os.path.abspath(repro_torch.__file__))
     if not pkg.startswith(os.path.join(HERE, "src") + os.sep):
@@ -2659,6 +2694,7 @@ def train_dist_phase(seed, on_card):
     from repro_torch.configs import ARCHS
     from repro_torch.launch import sharding as sh
     from repro_torch.launch import train as lt
+    from repro_torch.launch.hlo_cost import Census
     from repro_torch.models import build
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train import init_state, make_train_step
@@ -2735,6 +2771,34 @@ def train_dist_phase(seed, on_card):
             torch.cuda.empty_cache()
         return out
 
+    def census_step(spec):
+        """One step of the first mesh under the census (every rank), against
+        the dry run of the same cell on a fake world (rank 0)."""
+        mesh = lt.make_mesh(spec, device=dev)
+        model = build(cfg, device=dev, seed=seed)
+        state = lt.shard(init_state(model), mesh, gb)
+        step_fn = make_train_step(model, oc, microbatches=mb, impl="ref")
+        census = Census()
+        with census:
+            step_fn(state, lt.batch_for(cfg, dc, 0, dev, state.layout.rows(gb)))
+        sync(on_card)
+        got = census.result()
+        del model, state, step_fn
+        if on_card:
+            torch.cuda.empty_cache()
+        if rank:
+            return got
+        dry = dry_run_of(TRAIN_ARCH, on_card, DIST_LAYERS, world, spec, seq, gb, mb)
+        show(dict(train_dist="census", mesh=spec, layers=DIST_LAYERS, card=card,
+                  collective_bytes=got["collective_bytes"],
+                  dry_collective_bytes=dry["collective_bytes"], flops=got["flops"],
+                  dry_flops=dry["flops"], collectives=got["collective_breakdown"]))
+        if got["collective_bytes"] != dry["collective_bytes"] or (
+                world > 1 and not got["collective_bytes"]):
+            fail(f"train-dist census ({spec}): rank 0's collective bytes "
+                 f"{got['collective_bytes']} != the dry run's {dry['collective_bytes']}")
+        return got
+
     kept = {}
     try:
         runs = {"unbroken": train(grid[0], 0, steps, keep=kept),
@@ -2743,6 +2807,7 @@ def train_dist_phase(seed, on_card):
                 "resumed-b": train(grid[2], cut, steps, restore=True, against=kept)}
         del kept
         deep = train(grid[0], 0, DEEP_STEPS, c=dataclasses.replace(cfg, n_layers=base.n_layers))
+        counted = census_step(grid[0])
     finally:
         tdist.barrier()
         if rank == 0:
@@ -2783,6 +2848,175 @@ def train_dist_phase(seed, on_card):
         if [v["losses"] for v in r.values()] != [v["losses"] for v in runs.values()]:
             fail("train-dist: ranks disagree on the losses")
     return runs
+
+
+# --------------------------------------------------------------------------
+# offline: edge-list I/O, the analysis CLI, the census against the dry run
+# --------------------------------------------------------------------------
+
+IO_SCALE = 16                 # rmat(16) through save_edgelist / load_edgelist
+
+
+def io_check(scale, seed, dev, on_card):
+    """rmat(scale) written by save_edgelist and read back by load_edgelist
+    onto the card: every edge array equal to the source graph's; the node
+    arrays equal up to the largest id on an edge (the loader takes the node
+    count n from it, as the reference's does), the vertices above it
+    without edges in the source; the edge keys src·n + dst."""
+    import tempfile
+    import torch
+    from repro_torch.graph import FIELDS, io, rmat
+    g = rmat(scale, edge_factor=16, seed=seed, device=dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_io-") as d:
+        path = os.path.join(d, "g.txt")
+        t = time.perf_counter()
+        io.save_edgelist(g, path)
+        save_s = time.perf_counter() - t
+        size = os.path.getsize(path)
+        t = time.perf_counter()
+        back = io.load_edgelist(path, device=None if on_card else dev)
+        sync(on_card)
+        load_s = time.perf_counter() - t
+    n = back.num_nodes
+    if back.num_edges != g.num_edges or back.indptr.device.type != g.indptr.device.type:
+        fail(f"io: {back.num_edges} edges on {back.indptr.device}, not {g.num_edges} on "
+             f"{g.indptr.device}")
+    per_node = {"indptr": n + 1, "rev_indptr": n + 1, "out_degree": n, "in_degree": n}
+    for f in FIELDS:
+        want = getattr(g, f)
+        if f in per_node:
+            want = want[:per_node[f]]
+        if f == "edge_key":                   # src·N + dst, wrapped to int32: N is n here
+            want = (g.edge_src.long() * n + g.indices.long()).to(torch.int32)
+        if not torch.equal(getattr(back, f), want):
+            fail(f"io: {f} of the loaded graph differs from the source's")
+    if int(g.out_degree[n:].abs().sum() + g.in_degree[n:].abs().sum()):
+        fail(f"io: vertices from {n} on have edges, yet the loaded graph has {n} nodes")
+    return dict(io=f"rmat({scale})", nodes=g.num_nodes, loaded_nodes=n,
+                isolated_top_vertices_dropped=g.num_nodes - n, edges=g.num_edges,
+                file_bytes=size, save_s=save_s, load_s=load_s)
+
+
+def cli_check():
+    """`python -m repro_torch.analyze` in a process of its own: the bundled
+    programs strict-clean under --backend cuda, a racy program exits 1
+    with SP101."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    out = {}
+    for what, argv, code, text in (
+            ("bundled", ["--bundled", "--strict", "--backend", "cuda"], 0,
+             "0 error(s), 0 warning(s)"),
+            ("race", [os.path.join(HERE, "tests", "programs_bad", "race_cross_write.sp")], 1,
+             "SP101")):
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.analyze", *argv],
+                           capture_output=True, text=True, env=env, timeout=300)
+        if r.returncode != code or text not in r.stdout:
+            fail(f"analyze {what}: exit {r.returncode} (want {code}), output "
+                 f"{r.stdout[-300:]!r} {r.stderr[-300:]!r}")
+        out[what] = dict(exit=r.returncode, last_line=r.stdout.strip().splitlines()[-1],
+                         seconds=time.perf_counter() - t)
+    return out
+
+
+def census_check(seed, dev, on_card, trained):
+    """One more step of phase 18's cell under the census of launch.hlo_cost
+    on the card, against the dry run's census of the same cell on meta:
+    dot FLOPs and bytes equal exactly; the roofline terms of launch.roofline,
+    the measured step over its bound, 6·N·T over the census FLOPs, and the
+    dry run's predicted peak beside phase 18's measured one."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import dryrun, hlo_cost, roofline
+    from repro_torch.launch import train as lt
+    from repro_torch.models import build
+    from repro_torch.train import init_state, make_train_step
+    knobs = TRAIN_RUN if on_card else TRAIN_REHEARSAL
+    seq, gb, mb = knobs["seq"], knobs["global_batch"], knobs["microbatches"]
+    cfg = ARCHS[TRAIN_ARCH] if on_card else ARCHS[TRAIN_ARCH].smoke()
+    t = time.perf_counter()
+    dry = dryrun.train_census(cfg, seq=seq, global_batch=gb, microbatches=mb, impl="ref")
+    dry_s = time.perf_counter() - t
+    model = build(cfg, device=dev, seed=seed)
+    state = init_state(model)
+    step_fn = make_train_step(model, lt.optimizer_config(cfg, knobs["steps"], knobs["lr"]),
+                              microbatches=mb, impl="ref", remat=True)
+    batch = lt.batch_for(cfg, lt.data_config(cfg, seq, gb), 0, dev)
+    census = hlo_cost.Census()
+    t = time.perf_counter()
+    with census:
+        step_fn(state, batch)
+    sync(on_card)
+    card_s = time.perf_counter() - t
+    card = census.result()
+    del model, state, step_fn, batch
+    if on_card:
+        torch.cuda.empty_cache()
+    terms = roofline.terms(card)
+    n, tokens = trained["parameters"], gb * seq
+    step_s = trained["step_s_mean_2_to_5"]
+    predicted = dry["memory"]["argument_size_in_bytes"] + dry["memory"]["temp_size_in_bytes"]
+    info = dict(census="train step", model=cfg.name, seq=seq, global_batch=gb,
+                microbatches=mb, card=smi_line(on_card),
+                card_flops=card["flops"], dry_flops=dry["flops"],
+                card_dot_bytes=card["dot_bytes"], dry_dot_bytes=dry["dot_bytes"],
+                card_ops=card["num_computations"], unknown_trip_bodies=dry["unknown_trip_bodies"],
+                roofline=terms, measured_step_s=step_s,
+                step_over_bound=step_s / terms["step_lower_bound_s"],
+                model_flops_6NT=6 * n * tokens, useful_fraction=6 * n * tokens / card["flops"],
+                dry_predicted_peak_bytes=predicted,
+                dry_argument_bytes=dry["memory"]["argument_size_in_bytes"],
+                dry_temp_bytes=dry["memory"]["temp_size_in_bytes"],
+                phase18_peak_above_held_bytes=trained["peak_above_held_bytes"],
+                census_step_s_on_card=card_s, dry_census_s=dry_s,
+                dry_microbatches_run=dry["census"]["microbatches_run"])
+    print("  " + json.dumps(info), flush=True)
+    for k in ("flops", "dot_bytes"):
+        if card[k] != dry[k] or not card[k]:
+            fail(f"census: the card's {k} {card[k]} != the dry run's {dry[k]} on meta")
+    if dry["unknown_trip_bodies"] or card["unknown_trip_bodies"]:
+        fail(f"census: unknown trip counts {dry['unknown_trip_bodies']}")
+    return info
+
+
+def offline_phase(seed, dev, on_card, trained):
+    """Phase 20: edge-list I/O, the analysis CLI standing alone, and the
+    census of phase 18's step on the card against the dry run on meta."""
+    io_info = io_check(IO_SCALE if on_card else 8, seed, dev, on_card)
+    print("  " + json.dumps(io_info), flush=True)
+    cli = cli_check()
+    print("  " + json.dumps(dict(analyze=cli)), flush=True)
+    return dict(io=io_info, analyze=cli, census=census_check(seed, dev, on_card, trained))
+
+
+DRY_RUN_CELL = """\
+import json, sys
+from repro_torch.configs import ARCHS
+from repro_torch.launch import dryrun, train as lt
+import dataclasses
+a = json.loads(sys.argv[1])
+cfg = ARCHS[a["arch"]] if a["full"] else ARCHS[a["arch"]].smoke()
+cfg = dataclasses.replace(cfg, n_layers=a["layers"])
+with dryrun.fake_world(a["world"]):
+    mesh = lt.make_mesh(a["mesh"], device="meta")
+    rec = dryrun.train_census(cfg, seq=a["seq"], global_batch=a["global_batch"],
+                              microbatches=a["microbatches"], impl="ref", mesh=mesh)
+print(json.dumps(rec))
+"""
+
+
+def dry_run_of(arch, full, layers, world, mesh, seq, global_batch, microbatches):
+    """The dry run's census of a sharded train cell on a fake world of
+    `world` ranks, in a process of its own (this one's default group is
+    the real one): its record, rank 0's counts."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"), CUDA_VISIBLE_DEVICES="")
+    cell = dict(arch=arch, full=full, layers=layers, world=world, mesh=mesh, seq=seq,
+                global_batch=global_batch, microbatches=microbatches)
+    r = subprocess.run([sys.executable, "-c", DRY_RUN_CELL, json.dumps(cell)],
+                       capture_output=True, text=True, env=env, timeout=600)
+    if r.returncode:
+        fail(f"the dry run of {cell} failed: {r.stderr[-1500:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
 
 
 def dist_only(args, on_card):
@@ -3029,6 +3263,14 @@ def main(argv=None):
           f"{trained['tokens_per_s']:.0f} tokens/s, 6NT at "
           f"{100 * trained['mfu_vs_bf16_peak']:.2f}% of the bf16 peak; resume == straight"
           + ("; card == cpu; flash refuses grad" if on_card else ""))
+
+    # 20. offline
+    t0 = time.perf_counter()
+    offline = offline_phase(args.seed, dev, on_card, trained)
+    c = offline["census"]
+    phase("offline", t0, f"edge list == source graph; analyze CLI alone; census on the card "
+          f"== dry run on meta ({c['card_flops']:.4e} FLOPs), step "
+          f"{c['step_over_bound']:.2f}x its bound, 6NT / census {c['useful_fraction']:.4f}")
 
     if not on_card:
         print("rehearsal finished: plain versions on the CPU — not a smoke run")

@@ -32,7 +32,9 @@ from ..graph.csr import CSRGraph
 from . import runtime_dist as rtd
 
 # the collective backend each device type runs on
-BACKEND_FOR = {"cuda": "nccl", "cpu": "gloo"}
+# the meta device is the dry run's (`launch.dryrun`): an in-process fake
+# process group whose collectives move nothing
+BACKEND_FOR = {"cuda": "nccl", "cpu": "gloo", "meta": "fake"}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

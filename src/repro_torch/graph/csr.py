@@ -255,6 +255,14 @@ def from_arrays(arrays: dict, *, num_nodes: int, num_edges: int,
                     max_in_degree=int(max_in_degree), version=int(version))
 
 
+def to_dense(g: CSRGraph, dtype=torch.float32) -> torch.Tensor:
+    """Dense adjacency on `g`'s device (small graphs only — tests + the TC
+    matmul path): a[u, v] = 1 for every edge u → v."""
+    a = torch.zeros((g.num_nodes, g.num_nodes), dtype=dtype, device=g.device)
+    a[g.edge_src.long(), g.indices.long()] = 1
+    return a
+
+
 # --- ELL views ----------------------------------------------------------------
 
 def _round_up(x: int, m: int) -> int:

@@ -30,12 +30,21 @@ def remat_call(remat: bool, fn, *args):
 
 # --- init helpers -------------------------------------------------------------
 
-def dense_init(shape, dtype, *, generator: torch.Generator, scale=None) -> torch.Tensor:
+class MetaInit:
+    """The generator of an abstract build (`zoo.build(cfg, device="meta")`,
+    the counterpart of `jax.eval_shape(model.init)`): it only names the
+    device, since the meta device draws no numbers."""
+    device = torch.device("meta")
+
+
+def dense_init(shape, dtype, *, generator: torch.Generator | MetaInit,
+               scale=None) -> torch.Tensor:
     """Normal(0, 1/sqrt(fan_in)) (or `scale`) drawn in f32, then cast. The
     tensor lands on the generator's device."""
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else 1.0 / np.sqrt(fan_in)
-    x = torch.randn(shape, generator=generator, device=generator.device, dtype=torch.float32)
+    gen = generator if isinstance(generator, torch.Generator) else None
+    x = torch.randn(shape, generator=gen, device=generator.device, dtype=torch.float32)
     return (x * scale).to(dtype)
 
 

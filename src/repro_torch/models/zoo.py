@@ -5,6 +5,7 @@ config with pure functions over a separate parameter tree; here the model
 owns its parameters:
 
     model = zoo.build(cfg)                        # on the card, seeded init
+    model = zoo.build(cfg, device="meta")         # shapes only: eval_shape(init)
     logits, aux = model({"tokens": tokens}, impl="kernel", last_only=True)
     cache = model.init_cache(batch, max_len)
     logits, cache = model.decode_step(tokens, cache, pos)
@@ -20,6 +21,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..graph.csr import resolve_device
 from .encdec import EncDec
+from .layers import MetaInit
 from .transformer import Transformer
 
 
@@ -51,8 +53,14 @@ class Model(nn.Module):
 def build(cfg: ModelConfig, device=None, *, seed: int = 0) -> Model:
     """The model of `cfg` on `device` (None: the card; without one it
     raises), its weights drawn from a `torch.Generator` on that device
-    seeded with `seed`."""
-    generator = torch.Generator(device=resolve_device(device))
-    generator.manual_seed(seed)
+    seeded with `seed`. On "meta" it is abstract: every parameter and
+    buffer a meta tensor of its shape and dtype, nothing allocated or
+    drawn."""
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        generator = MetaInit()
+    else:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(seed)
     net = EncDec if cfg.family == "encdec" else Transformer
     return Model(cfg, net(cfg, generator=generator))

@@ -31,7 +31,8 @@ def test_the_walk_sees_the_package():
     names = {p.name for p in FILES}
     assert {"csr.py", "ops.py", "kernel.py", "api.py", "transformer.py", "engine.py",
             "chip_smoke.py", "dist.py", "runtime_dist.py", "distributed.py",
-            "torch_dist_worker.py"} <= names
+            "torch_dist_worker.py", "io.py", "cli.py", "__main__.py", "analyze.py",
+            "roofline.py", "hlo_cost.py", "dryrun.py", "report.py"} <= names
     assert all(p.exists() for p in FILES)
 
 

@@ -2,8 +2,8 @@
 against the reference's `repro.launch`, and sharded training on gloo ranks.
 
 Specs are compared leaf for leaf at full size for every config of
-`configs.ARCHS`: the reference's from `jax.eval_shape`, the port's from a
-model whose random draws land on the meta device. A port leaf of a layer
+`configs.ARCHS`: the reference's from `jax.eval_shape`, the port's from
+its abstract build (`build(cfg, device="meta")`). A port leaf of a layer
 stack is the reference's stacked leaf without its leading [L] entry.
 
 Sharded training runs in worlds of gloo ranks (`torch_dist_worker`):
@@ -19,7 +19,6 @@ exactly.
 """
 import math
 import types
-from unittest import mock
 
 import jax
 import numpy as np
@@ -41,14 +40,6 @@ from torch_dist_worker import reduce_case_grad, spawn_world
 
 AXES = [{"data": 16, "model": 16}, {"pod": 2, "data": 16, "model": 16},
         {"data": 4, "model": 2}, {"data": 2, "model": 2}]
-
-
-def meta_build(cfg):
-    """build(cfg) with every random draw on the meta device: the shapes of
-    a full-size model, with nothing of that size allocated."""
-    meta_randn = lambda shape, **kw: torch.empty(shape, device="meta")  # noqa: E731
-    with mock.patch.object(torch, "randn", meta_randn):
-        return build(cfg, device="cpu")
 
 
 def ref_flat(specs):
@@ -100,7 +91,7 @@ def shapes():
         if name not in cache:
             ref = ref_build(ref_configs.ARCHS[name])
             cache[name] = (jax.eval_shape(ref.init, jax.random.PRNGKey(0)), ref,
-                           meta_build(configs.ARCHS[name]))
+                           build(configs.ARCHS[name], device="meta"))
         return cache[name]
     return get
 

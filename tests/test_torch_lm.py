@@ -145,15 +145,6 @@ def test_build_is_seeded_and_defaults_to_the_card():
             build(cfg)
 
 
-def meta_build(cfg):
-    """build(cfg) with every random draw on the meta device: the shapes of
-    a full-size model, with nothing of that size allocated."""
-    from unittest import mock
-    meta_randn = lambda shape, **kw: torch.empty(shape, device="meta")  # noqa: E731
-    with mock.patch.object(torch, "randn", meta_randn):
-        return build(cfg, device="cpu")
-
-
 @pytest.mark.parametrize("name", list(configs.ARCHS))
 def test_every_config_builds(name):
     """Every config of configs.ARCHS builds on the CPU at smoke size and
@@ -170,7 +161,7 @@ def test_every_config_builds(name):
     assert bool(torch.isfinite(logits).all())
     shapes = jax.eval_shape(ref_build(ref_configs.ARCHS[name]).init, jax.random.PRNGKey(0))
     want = sum(int(np.prod(leaf.shape)) for leaf in jax.tree.leaves(shapes))
-    assert sum(p.numel() for p in meta_build(cfg).parameters()) == want
+    assert sum(p.numel() for p in build(cfg, device="meta").parameters()) == want
 
 
 def test_carry_over_rejects_a_tree_that_does_not_fit(pair):
@@ -183,9 +174,10 @@ def test_carry_over_rejects_a_tree_that_does_not_fit(pair):
 
 def test_full_size_parameter_count():
     """qwen2.5-3b at full width and depth holds 3,086,200,832 parameters,
-    77,076,992 per layer (shapes only: the random draws land on the meta
-    device, so nothing of that size is allocated)."""
-    m = meta_build(configs.ARCHS["qwen2.5-3b"])
+    77,076,992 per layer (the abstract build: every parameter a meta
+    tensor, nothing of that size allocated)."""
+    m = build(configs.ARCHS["qwen2.5-3b"], device="meta")
+    assert all(t.device.type == "meta" for t in list(m.parameters()) + list(m.buffers()))
     assert sum(p.numel() for p in m.parameters()) == 3_086_200_832
     assert sum(p.numel() for p in m.net.layers[0].parameters()) == 77_076_992
     assert len(m.net.layers) == 36 and m.net.embed.shape == (152_064, 2048)
