@@ -4,8 +4,9 @@
     python3 chip_smoke.py                          # the smoke run: one card, RMAT scale 22
     python3 chip_smoke.py --trace                  # ... and where each run's time goes
     python3 chip_smoke.py --scale 10 --device cpu  # rehearsal of the plain versions
-    torchrun --nproc-per-node 4 chip_smoke.py --dist-only   # phases 16, 17 and 19 on 4 cards
+    torchrun --nproc-per-node 4 chip_smoke.py --dist-only   # phases 16, 17, 19, 21 on 4 cards
     torchrun --nproc-per-node 4 chip_smoke.py --dist-only train   # phase 19 alone
+    torchrun --nproc-per-node 4 chip_smoke.py --dist-only tp      # phase 21 alone
 
 Phases, each printed with its own seconds; any failure exits non-zero:
 
@@ -183,14 +184,17 @@ graph:
                rank's schedule and record the same (an all-gather of a
                digest), the winner's dist equal to `cuda`'s.
 
-`--dist-only` runs the graph, its `cuda` baselines and phases 16, 17 and
-19 alone (`--dist-only train`: phase 19 alone); under `torchrun
+`--dist-only` runs the graph, its `cuda` baselines and phases 16, 17, 19
+and 21 alone (`--dist-only train`: phase 19 alone, `--dist-only tp`:
+phase 21 alone); under `torchrun
 --nproc-per-node 4 chip_smoke.py --dist-only` (one card a rank, NCCL)
 phase 17 takes the grids (2, 2), (1, 4) and (4, 1) and the pods (2, 2)
 and (4, 1), a pod count above 1 holding `_gather_elems` to the sum of
-each pod's slice run alone; only rank 0 prints.
+each pod's slice run alone; only rank 0 prints. On the card rank 0 ends
+with a {"kernels": [...]} line of flash_attention.bf16 with phase 21's
+launches, timed at its shape (BH = 4, S = 32,768, D = 128).
 
-Phase 18 runs after phase 15, phase 19 only under --dist-only:
+Phase 18 runs after phase 15, phases 19 and 21 only under --dist-only:
 
  18. train   — qwen2.5-3b at full width and depth (bf16, seeded init)
                trained through launch.train's pieces: 5 steps of seq
@@ -221,12 +225,31 @@ Phase 18 runs after phase 15, phase 19 only under --dist-only:
                its (gathered, leaf by leaf), every rank's held bytes of
                params + m + v equal to the specs' arithmetic; then 3
                steps on (2, 2) at full depth (36 layers) for its peak
-               and step times; rank 0 prints the held bytes, the peaks
-               and every rank's step times. Then one step of the first
-               mesh at 4 layers under the census of launch.hlo_cost on
-               every rank: rank 0's collective bytes must equal those of
-               the dry run's census of the same cell on a fake world of
-               as many ranks (launch.dryrun, in a process of its own).
+               and step times; an unbroken (1, 4) run of 3 steps whose
+               losses lie within 2e-2 of the same steps on one card
+               (unsharded, rank 0); rank 0 prints the held bytes, the
+               peaks and every rank's step times by mesh. Qwen is dense,
+               so every mesh runs the split plan of launch.sharding (its
+               heads, ff columns and vocab over "model", each layer
+               gathered over "data" as it runs). Then one step of (2, 2)
+               and one of (1, 4) at 4 layers under the census of
+               launch.hlo_cost on every rank: rank 0's collective bytes
+               and dot FLOPs must equal those of the dry run's census of
+               the same cell on a fake world of as many ranks
+               (launch.dryrun, in a process of its own);
+ 21. tp-prefill — qwen2.5-3b at full width and depth (bf16, seeded), a
+               32,768-token prompt prefilled on mesh (1, 4) through the
+               split plan: each rank runs its 4 query heads and the KV
+               head they read, flash on its [1, 4, S, 128] queries (36
+               launches a rank, BH = 4), its ff columns and vocab block;
+               the first call's first flash call on each rank held
+               against attention_ref in blocks of 1,024 query rows
+               (phase 8's rules); the second call timed; its last-token
+               logits, gathered over "model", equal on every rank and
+               within 0.25 of the unsplit one-card prefill of the same
+               weights (phase 9's rule; rank 0's card, broadcast).
+               Prints the prefill seconds a rank, tokens/s and the peak a
+               rank beside nvidia-smi's name and power limit.
 
 Phase 20 runs after phase 18:
 
@@ -276,10 +299,13 @@ Phase 15 runs last, after phase 10:
 With --trace, phase 12 also traces one lone sssp query and one coalesced
 sweep (B = 32), and phase 13 one sssp refresh, in phase 7's format, and
 phase 15 one prefill of each family (xlstm's at 512 tokens), and phase 18
-a sixth train step. The CUDA caching allocator runs with expandable
-segments (PYTORCH_CUDA_ALLOC_CONF, unless the caller sets it): without
-them phase 15's f32 upcast of deepseek-moe-16b ran out of memory after
---trace's profiled prefill, on fragmented segments.
+a sixth train step; phase 19 traces one more step of its full-depth
+(2, 2) run, then runs and traces the same steps on the gathered plan (the
+whole parameters gathered at the step's start). The CUDA caching
+allocator runs with expandable segments (PYTORCH_CUDA_ALLOC_CONF, unless
+the caller sets it): without them phase 15's f32 upcast of
+deepseek-moe-16b ran out of memory after --trace's profiled prefill, on
+fragmented segments.
 
 The line before the last is {"kernels": [...]} (ell_spmv's two semirings,
 reported by the sweep that the main path runs, with the launches of
@@ -1465,6 +1491,45 @@ def collective_probe(mesh, n_pad, on_card, reps=10):
     return out
 
 
+PROBE_BYTES = (1 << 20, 1 << 24, 1 << 26)     # subgroup_probe's result sizes
+
+
+def subgroup_probe(specs, dev, on_card, reps=10):
+    """ms and bytes/s (of the result) of a bf16 all-gather of PROBE_BYTES
+    over every axis of more than one rank of the meshes `specs` (sub-groups
+    of `dist.make_mesh`) and over the default group, each the mean of
+    `reps` calls after one warm-up, the ranks lined up by a barrier: does
+    a sub-group gather slower than the world at the sizes of a layer's
+    gather? Every rank calls it; returns the rows."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.core.dist import Mesh1D
+    from repro_torch.launch import train as lt
+    from repro_torch.launch.parallel import all_gather
+    world = tdist.get_world_size()
+    axes = [("world", Mesh1D(group=None, size=world, rank=tdist.get_rank(), device=dev))]
+    for spec in dict.fromkeys(specs):
+        mesh = lt.make_mesh(spec, device=dev)
+        axes += [(f"{spec} {a}", mesh.axis(a)) for a, n in mesh.shape.items() if n > 1]
+    rows = []
+    for name, ax in axes:
+        if ax.size == 1:
+            continue
+        for nbytes in PROBE_BYTES:
+            blk = torch.zeros(nbytes // 2 // ax.size, dtype=torch.bfloat16, device=dev)
+            all_gather(blk, 0, ax)
+            tdist.barrier()
+            sync(on_card)
+            t = time.perf_counter()
+            for _ in range(reps):
+                all_gather(blk, 0, ax)
+            sync(on_card)
+            secs = (time.perf_counter() - t) / reps
+            rows.append(dict(group=name, ranks=ax.size, bytes=nbytes, ms=secs * 1e3,
+                             bytes_per_s=nbytes / secs))
+    return rows
+
+
 def second_call(fn, on_card):
     """Calls `fn` twice; returns the second call's result and its timing:
     the first call's seconds, the second's (host clock ending in a
@@ -1750,7 +1815,6 @@ def lm_kernel_phase(seed, dev, on_card, long_seq):
     version runs in blocks of query rows; the kernel timed there beside the
     plain version and SDPA."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     gen = torch.Generator(device=dev)
@@ -1784,7 +1848,6 @@ def lm_kernel_phase(seed, dev, on_card, long_seq):
     bh, s, d = 16, long_seq, 128
     chunk = PLAIN_CHUNK if on_card else 64
     q, k, v = operands(bh, s, s, d, torch.bfloat16)
-    flops, bound, bound_by = flash_bound_ms(bh, s, s, d, True, 2)
     got = flash_attention(q, k, v, causal=True)
     want = attention_ref_in_chunks(q, k, v, chunk)
     err, excess, rel_rms = flash_vs_plain(got, want, chunk)
@@ -1796,9 +1859,21 @@ def lm_kernel_phase(seed, dev, on_card, long_seq):
         fail(f"flash_attention at S={s} disagrees with attention_ref")
     if not on_card:
         return None
+    del want
+    return flash_entry(q, k, v, got, chunk, max(bf16_err, err))
+
+
+def flash_entry(q, k, v, got, chunk, max_abs_err):
+    """The kernels line's entry of flash_attention.bf16 at the shape of q,
+    k, v ([BH, S, D] bf16, causal; `got` the kernel's output): the kernel
+    timed beside the plain version in blocks of `chunk` query rows, SDPA
+    and the bound; launches filled in by the caller."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    bh, s, d = q.shape
+    flops, bound, bound_by = flash_bound_ms(bh, s, s, d, True, 2)
     ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), n=10)
     plain_ms = cuda_ms(lambda: attention_ref_in_chunks(q, k, v, chunk), n=2, warm=1)
-    del want
     # SDPA takes [B, H, S, D]; on 3-d operands it falls back to its
     # materializing path. Timed as the library call, never used by the port
     q4, k4, v4 = (x.view(1, bh, s, d) for x in (q, k, v))
@@ -1810,7 +1885,7 @@ def lm_kernel_phase(seed, dev, on_card, long_seq):
           f"{flops:.3e} FLOPs at {BF16_OPS_PER_S:.3e}/s), plain in blocks {plain_ms:.4f} ms, "
           f"SDPA {lib_ms:.4f} ms (max abs diff vs SDPA {lib_err:.3e})")
     return dict(name="flash_attention.bf16", route="cuda", source=FLASH_SOURCE,
-                replaces=FLASH_REPLACES, launches=0, max_abs_err=max(bf16_err, err), ms=ms,
+                replaces=FLASH_REPLACES, launches=0, max_abs_err=max_abs_err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
 
 
@@ -2451,12 +2526,20 @@ DIST_LAYERS = 4               # phase 19: full width, 4 layers
 DIST_RUN = dict(seq=2048, global_batch=8, microbatches=2, steps=5, resume_at=3, lr=1e-3)
 DIST_REHEARSAL = dict(DIST_RUN, seq=64)
 DEEP_STEPS = 3                # phase 19 also times (2, 2) at full depth: its peak and steps
+TP_STEPS = 3                  # ... and an unbroken (1, 4) run against one rank's
+# a sharded run's losses against the one-rank run of the same steps (bf16:
+# tests/test_torch_launch.py holds its gloo runs to the same bound), and a
+# run on one plan against a run on the other: the split plan sums each
+# row-split product's partial sums over "model" in bf16, so its losses lie
+# about 1e-4 (relative) from the gathered plan's and one card's
+ONE_RANK_ATOL = 2e-2
 # Two bf16 runs of the same steps agree on their losses within this
 # (relative): a sharded step groups its rows' gradient sums otherwise, and
 # the embedding backward adds with atomics, so parameters differ by a bf16
 # ulp (2^-8 relative) here and there from the first step on. Read on the
 # card: phase 18's resume equal to the straight run bitwise, phase 19's
-# meshes within 6.6e-6 of each other and of the unbroken run
+# meshes within 6.6e-6 of each other and of the unbroken run, its gathered
+# run within 3.6e-5 of one card's (the same whole-weight arithmetic)
 TRAIN_LOSS_RTOL = 1e-4
 # ... and on m and v, leaf by leaf, within this distance |got - want| /
 # |want| (the largest over leaves). Read by tests/test_torch_launch.py::
@@ -2675,17 +2758,29 @@ def train_phase(seed, dev, on_card, trace=False):
     return dict(info, resume=resume, card_vs_cpu=versus)
 
 
-def train_dist_phase(seed, on_card):
+def train_dist_phase(seed, on_card, trace=False):
     """Phase 19, inside `process_group`: qwen2.5-3b at full width with
     DIST_LAYERS layers (smoke size in the rehearsal), sharded by
     launch.sharding on meshes of the world's ranks. At four ranks: 3 steps
     on (2, 2) and a checkpoint, then from it 2 steps on (4, 1) and 2 on
     (1, 4), and an unbroken (2, 2) run of 5 steps; at one rank (1, 1) for
-    each. Losses agree across meshes and with the unbroken run, so do the
-    resumed runs' m and v at the last step (gathered, leaf by leaf), and
-    every rank holds exactly the bytes of params + m + v its specs give.
-    Then DEEP_STEPS steps on the first mesh at the config's full depth,
-    for the peak and step times of the sharded path there."""
+    each. Qwen is dense, so these run the split plan; one more unbroken
+    run of the first mesh runs the gathered plan (the whole parameters
+    gathered at the step's start, the path of the other families). Losses
+    agree across meshes and with the unbroken run at TRAIN_LOSS_RTOL (the
+    gathered run at ONE_RANK_ATOL: another plan's arithmetic), so do the
+    resumed and gathered runs' m and v at the last step (gathered, leaf by
+    leaf), and every rank holds exactly the bytes of params + m + v its
+    specs give. Then an unbroken run of TP_STEPS steps on (1, 4) against
+    the same steps on one rank (unsharded, rank 0's card) at
+    ONE_RANK_ATOL, the gathered run's first TP_STEPS against them at
+    TRAIN_LOSS_RTOL, and DEEP_STEPS steps on the first mesh at the config's
+    full depth, for the peak and step times of the sharded path there.
+    Then one step of (2, 2) and one of (1, 4) under the census: rank 0's
+    collective bytes and dot FLOPs equal the dry run's of the same cell on
+    a fake world. Last, `subgroup_probe`. With `trace`, the full depth run
+    traces one more step, and runs again on the gathered plan, traced
+    too."""
     import dataclasses
     import shutil
     import tempfile
@@ -2695,6 +2790,7 @@ def train_dist_phase(seed, on_card):
     from repro_torch.launch import sharding as sh
     from repro_torch.launch import train as lt
     from repro_torch.launch.hlo_cost import Census
+    from repro_torch.launch.mesh import effective_batch_axes
     from repro_torch.models import build
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train import init_state, make_train_step
@@ -2728,12 +2824,15 @@ def train_dist_phase(seed, on_card):
         return out
 
     def train(spec, start, stop, restore=False, save=False, keep=None, against=None,
-              c=cfg):
+              c=cfg, plan=None, traced=False):
         mesh = lt.make_mesh(spec, device=dev)
         model = build(c, device=dev, seed=seed)
         whole = {n: (p.numel(), p.element_size()) for n, p in model.net.named_parameters()}
-        state = lt.shard(init_state(model), mesh, gb)
-        lay = state.layout
+        state = init_state(model)
+        lay = sh.named(mesh, sh.param_specs(state.params, dict(mesh.shape)),
+                       effective_batch_axes(mesh, gb))
+        lay._plan = plan
+        state = sh.place(state, lay)
         if restore:
             state = ckpt.restore(d, cut, state, shardings=lay)
         step_fn = make_train_step(model, oc, microbatches=mb, impl="ref")
@@ -2746,14 +2845,18 @@ def train_dist_phase(seed, on_card):
             state, metrics = step_fn(state, lt.batch_for(c, dc, i, dev, rows))
             losses.append(float(metrics["loss"]))
             secs.append(time.perf_counter() - t)
-        out = dict(mesh=spec, steps=[start, stop], losses=losses, step_s=secs,
-                   held_bytes=sh.held_bytes(state),
+        out = dict(mesh=spec, plan=lay.plan_for(c), steps=[start, stop], losses=losses,
+                   step_s=secs, held_bytes=sh.held_bytes(state),
                    spec_bytes=sum(n // math.prod(sh._axis_size(e, mesh.shape)
                                                  for e in lay.specs[name]) * (size + 8)
                                   for name, (n, size) in whole.items()),
                    whole_bytes=sum(n * (size + 8) for n, size in whole.values()),
                    peak_bytes=torch.cuda.max_memory_allocated(dev) if on_card else None,
                    rows=[rows.start, rows.stop])
+        if traced and on_card:
+            out["trace"] = trace_run(lambda: step_fn(state, lt.batch_for(c, dc, stop, dev, rows)),
+                                     top=16)
+            out["trace"].pop("kernels")
         if keep is not None or against is not None:
             moments = whole_moments(state)
             if keep is not None:
@@ -2771,9 +2874,25 @@ def train_dist_phase(seed, on_card):
             torch.cuda.empty_cache()
         return out
 
+    def one_rank(stop):
+        """The losses of steps 0 to `stop` of the unsharded model on rank 0's
+        card (the whole global batch), on every rank."""
+        losses = [None]
+        if rank == 0:
+            model = build(cfg, device=dev, seed=seed)
+            state = init_state(model)
+            step_fn = make_train_step(model, oc, microbatches=mb, impl="ref")
+            losses = [[float(step_fn(state, lt.batch_for(cfg, dc, i, dev))[1]["loss"])
+                       for i in range(stop)]]
+            del model, state, step_fn
+            if on_card:
+                torch.cuda.empty_cache()
+        tdist.broadcast_object_list(losses, src=0)
+        return losses[0]
+
     def census_step(spec):
-        """One step of the first mesh under the census (every rank), against
-        the dry run of the same cell on a fake world (rank 0)."""
+        """One step of `spec` under the census (every rank), against the dry
+        run of the same cell on a fake world (rank 0)."""
         mesh = lt.make_mesh(spec, device=dev)
         model = build(cfg, device=dev, seed=seed)
         state = lt.shard(init_state(model), mesh, gb)
@@ -2790,13 +2909,16 @@ def train_dist_phase(seed, on_card):
             return got
         dry = dry_run_of(TRAIN_ARCH, on_card, DIST_LAYERS, world, spec, seq, gb, mb)
         show(dict(train_dist="census", mesh=spec, layers=DIST_LAYERS, card=card,
-                  collective_bytes=got["collective_bytes"],
+                  plan=dry["plan"], collective_bytes=got["collective_bytes"],
                   dry_collective_bytes=dry["collective_bytes"], flops=got["flops"],
                   dry_flops=dry["flops"], collectives=got["collective_breakdown"]))
         if got["collective_bytes"] != dry["collective_bytes"] or (
                 world > 1 and not got["collective_bytes"]):
             fail(f"train-dist census ({spec}): rank 0's collective bytes "
                  f"{got['collective_bytes']} != the dry run's {dry['collective_bytes']}")
+        if got["flops"] != dry["flops"] or not got["flops"]:
+            fail(f"train-dist census ({spec}): rank 0's dot FLOPs {got['flops']} != the "
+                 f"dry run's {dry['flops']}")
         return got
 
     kept = {}
@@ -2804,50 +2926,200 @@ def train_dist_phase(seed, on_card):
         runs = {"unbroken": train(grid[0], 0, steps, keep=kept),
                 "first": train(grid[0], 0, cut, save=True),
                 "resumed-a": train(grid[1], cut, steps, restore=True, against=kept),
-                "resumed-b": train(grid[2], cut, steps, restore=True, against=kept)}
+                "resumed-b": train(grid[2], cut, steps, restore=True, against=kept),
+                "gathered": train(grid[0], 0, steps, against=kept, plan="gathered")}
         del kept
-        deep = train(grid[0], 0, DEEP_STEPS, c=dataclasses.replace(cfg, n_layers=base.n_layers))
-        counted = census_step(grid[0])
+        tp = train(grid[2], 0, TP_STEPS)
+        alone = one_rank(TP_STEPS)
+        deep_cfg = dataclasses.replace(cfg, n_layers=base.n_layers)
+        deep = train(grid[0], 0, DEEP_STEPS, c=deep_cfg, traced=trace)
+        gathered = (train(grid[0], 0, DEEP_STEPS, c=deep_cfg, plan="gathered", traced=True)
+                    if trace else None)
+        for spec in dict.fromkeys((grid[0], grid[2])):
+            census_step(spec)
+        probe = subgroup_probe([grid[0], grid[2]], dev, on_card)
     finally:
         tdist.barrier()
         if rank == 0:
             shutil.rmtree(d, ignore_errors=True)
     every = [None] * world
-    tdist.all_gather_object(every, dict(runs, full_depth=deep))
+    tdist.all_gather_object(every, dict(runs, tp=tp, full_depth=deep))
     show(dict(train_dist="runs", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
               seq=seq, global_batch=gb, microbatches=mb, world=world, card=card,
-              runs={k: {x: v[x] for x in ("mesh", "steps", "losses", "held_bytes",
+              runs={k: {x: v[x] for x in ("mesh", "plan", "steps", "losses", "held_bytes",
                                           "spec_bytes", "whole_bytes", "peak_bytes",
                                           "save_s", "checkpoint_bytes", "moments_apart")
                                  if x in v}
                     for k, v in runs.items()},
               step_s_by_rank=[{k: v["step_s"] for k, v in r.items()} for r in every],
               peak_bytes_by_rank=[{k: v["peak_bytes"] for k, v in r.items()} for r in every],
+              tp=dict(mesh=tp["mesh"], losses=tp["losses"], one_rank_losses=alone,
+                      held_bytes=tp["held_bytes"], spec_bytes=tp["spec_bytes"],
+                      peak_bytes=tp["peak_bytes"]),
               full_depth=dict(layers=base.n_layers, mesh=deep["mesh"], losses=deep["losses"],
                               held_bytes=deep["held_bytes"], spec_bytes=deep["spec_bytes"],
-                              whole_bytes=deep["whole_bytes"])))
+                              whole_bytes=deep["whole_bytes"], peak_bytes=deep["peak_bytes"],
+                              peak_gb_by_rank=[r["full_depth"]["peak_bytes"] / 1e9
+                                               if on_card else None for r in every])))
+    show(dict(train_dist="step seconds by mesh (rank 0)", card=card,
+              **{f"{k} {v['mesh']}": v["step_s"] for k, v in
+                 dict(runs, tp=tp, full_depth=deep).items()}))
+    show(dict(train_dist="collective probe", card=card, rows=probe))
+    if gathered is not None:
+        show(dict(train_dist="full depth traced", card=card, mesh=deep["mesh"],
+                  split=dict(step_s=deep["step_s"], peak_bytes=deep["peak_bytes"],
+                             trace=deep.get("trace")),
+                  gathered=dict(step_s=gathered["step_s"], peak_bytes=gathered["peak_bytes"],
+                                losses=gathered["losses"], trace=gathered.get("trace"))))
     unbroken = runs["unbroken"]["losses"]
     for name, r in runs.items():
         if r["held_bytes"] != r["spec_bytes"]:
             fail(f"train-dist {name} ({r['mesh']}) rank {rank}: holds {r['held_bytes']} "
                  f"bytes, the specs give {r['spec_bytes']}")
         want = unbroken[r["steps"][0]:r["steps"][1]]
-        if not all(math.isfinite(x) and math.isclose(x, w, rel_tol=TRAIN_LOSS_RTOL)
+        if not all(math.isfinite(x) and (abs(x - w) <= ONE_RANK_ATOL if name == "gathered"
+                                         else math.isclose(x, w, rel_tol=TRAIN_LOSS_RTOL))
                    for x, w in zip(r["losses"], want)):
             fail(f"train-dist {name} ({r['mesh']}): losses {r['losses']} vs unbroken {want}")
-    for name in ("resumed-a", "resumed-b"):
+    if not all(math.isclose(x, w, rel_tol=TRAIN_LOSS_RTOL)
+               for x, w in zip(runs["gathered"]["losses"], alone)):
+        fail(f"train-dist gathered ({runs['gathered']['mesh']}): losses "
+             f"{runs['gathered']['losses']} vs one rank's {alone}")
+    if runs["gathered"]["plan"] != "gathered" or any(
+            runs[k]["plan"] != "split" for k in runs if k != "gathered"):
+        fail(f"train-dist: plans {[(k, v['plan']) for k, v in runs.items()]}")
+    for name in ("resumed-a", "resumed-b", "gathered"):
         apart = every[0][name]["moments_apart"]
         if not apart <= MOMENT_RTOL:
             fail(f"train-dist {name} ({runs[name]['mesh']}): m and v at step {steps} lie "
                  f"{apart} from the unbroken run's")
+    if tp["held_bytes"] != tp["spec_bytes"] or not all(
+            math.isfinite(x) and abs(x - w) <= ONE_RANK_ATOL for x, w in zip(tp["losses"], alone)):
+        fail(f"train-dist ({tp['mesh']}) rank {rank}: holds {tp['held_bytes']} bytes (the specs "
+             f"give {tp['spec_bytes']}), losses {tp['losses']} vs one rank's {alone}")
     if deep["held_bytes"] != deep["spec_bytes"] or not all(map(math.isfinite, deep["losses"])):
         fail(f"train-dist full depth ({deep['mesh']}) rank {rank}: holds {deep['held_bytes']} "
              f"bytes (the specs give {deep['spec_bytes']}), losses {deep['losses']}")
     for r in every:
         r.pop("full_depth")
+        r.pop("tp")
         if [v["losses"] for v in r.values()] != [v["losses"] for v in runs.values()]:
             fail("train-dist: ranks disagree on the losses")
     return runs
+
+
+# --------------------------------------------------------------------------
+# tp-prefill: the split prefill over "model" (phase 21, across ranks)
+# --------------------------------------------------------------------------
+
+TP_SEQ = 32768
+
+
+def tp_prefill_phase(seed, on_card):
+    """Phase 21, inside `process_group`: qwen2.5-3b at full width and depth
+    (bf16, seeded; its smoke config at 256 tokens in the rehearsal), one
+    prompt of TP_SEQ tokens, prefilled through the split plan on mesh
+    (1, world): each rank runs its H / world query heads (the KV head
+    they read gathered over "model"), its ff columns and vocab block,
+    flash on its [1, H / world, S, D] queries. The first call's first
+    flash call on each rank held against attention_ref in blocks of
+    1,024 query rows (phase 8's rules); the second call timed, launching
+    flash once a layer; its last-token logits, gathered over "model",
+    equal on every rank and within LM_LOGIT_ATOL of the unsplit one-card
+    prefill of the same weights (rank 0's card, broadcast). Returns rank
+    0's figures and the kernels line's flash entry at the rank's shape."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import train as lt
+    from repro_torch.launch.mesh import effective_batch_axes
+    from repro_torch.models import build
+    cfg = ARCHS[TRAIN_ARCH] if on_card else ARCHS[TRAIN_ARCH].smoke()
+    seq = TP_SEQ if on_card else 256
+    chunk = PLAIN_CHUNK if on_card else 64
+    world, rank = tdist.get_world_size(), tdist.get_rank()
+    dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))) if on_card else "cpu"
+    show = shower(rank)
+    if on_card:        # every rank builds before the first collective, not inside one
+        from repro_torch.kernels import _build
+        _build.build_all(["flash_attention"])
+    model = build(cfg, device=dev, seed=seed)
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (1, seq))).to(dev)
+    want = torch.empty((1, 1, cfg.vocab_padded), dtype=torch.float32, device=dev)
+    with torch.inference_mode():
+        if rank == 0:         # the one-card unsplit prefill
+            want.copy_(model({"tokens": toks}, impl="kernel", last_only=True)[0])
+        tdist.broadcast(want, src=0)
+    mesh = lt.make_mesh(f"1,{world}", device=dev)
+    params = dict(model.net.named_parameters())
+    layout = sh.named(mesh, sh.param_specs(params, dict(mesh.shape)),
+                      effective_batch_axes(mesh, 1))
+    if sh.place_model(model, layout) != "split":
+        fail(f"tp-prefill: {cfg.name} is not on the split plan")
+    plan = model.net.plan
+    held = sum(p.numel() * p.element_size() for p in model.parameters())
+    if on_card:
+        torch.cuda.empty_cache()
+    rows = []
+    with torch.inference_mode():
+        with each_flash_call_held(rows, chunk, first_of_each_shape=True):
+            model({"tokens": toks}, impl="kernel", last_only=True)
+        sync(on_card)
+        before = torch.cuda.memory_allocated(dev) if on_card else 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        flash_attention.launches = 0
+        t = time.perf_counter()
+        got, _ = model({"tokens": toks}, impl="kernel", last_only=True)
+        sync(on_card)
+        secs = time.perf_counter() - t
+        launches = flash_attention.launches
+        peak = torch.cuda.max_memory_allocated(dev) if on_card else None
+        first = got.clone()
+        tdist.broadcast(first, src=0)
+    held_calls_agree(cfg, "tp-prefill", rows)
+    err = float((got - want).abs().max())
+    heads = plan.q[1] - plan.q[0]
+    info = dict(tp_prefill=cfg.name, layers=cfg.n_layers, seq=seq, mesh=f"1,{world}",
+                card=smi_line(on_card), heads_a_rank=heads, kv_heads_a_rank=plan.kv[1] - plan.kv[0],
+                own_kv_block=plan.own_kv, flash_calls_held=rows, prefill_s=secs,
+                tokens_per_s=seq / secs, flash_launches=launches,
+                weights_gb=weights / 1e9, held_gb=held / 1e9,
+                peak_gb=peak / 1e9 if on_card else None,
+                peak_above_held_gb=(peak - before) / 1e9 if on_card else None,
+                vs_one_card_max_abs=err, logit_max_abs=float(want.abs().max()))
+    every = [None] * world
+    tdist.all_gather_object(every, dict(prefill_s=secs, peak_gb=info["peak_gb"], err=err))
+    info["by_rank"] = every
+    show(info)
+    if tuple(got.shape) != (1, 1, cfg.vocab_padded) or not bool(torch.isfinite(got).all()):
+        fail(f"tp-prefill: logits of shape {tuple(got.shape)} or non-finite values")
+    if not torch.equal(got, first):
+        fail(f"tp-prefill: rank {rank}'s gathered logits differ from rank 0's")
+    if not err <= LM_LOGIT_ATOL:
+        fail(f"tp-prefill: split vs one-card logits max abs diff {err} > {LM_LOGIT_ATOL}")
+    if on_card and (launches != cfg.n_layers or rows[0]["bh"] != cfg.n_heads // world):
+        fail(f"tp-prefill: {launches} flash launches (want {cfg.n_layers}) at BH "
+             f"{rows[0]['bh']} (want {cfg.n_heads // world})")
+    entry = None
+    if on_card and rank == 0:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        q, k, v = (torch.randn((heads, seq, cfg.hd), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        entry = flash_entry(q, k, v, flash_attention(q, k, v, causal=True), chunk,
+                            max(r["max_abs_err"] for r in rows))
+        entry["launches"] = launches
+        del q, k, v
+    tdist.barrier()
+    del model, plan, got, first, want
+    if on_card:
+        torch.cuda.empty_cache()
+    return dict(info, flash=entry)
 
 
 # --------------------------------------------------------------------------
@@ -3020,10 +3292,12 @@ def dry_run_of(arch, full, layers, world, mesh, seq, global_batch, microbatches)
 
 
 def dist_only(args, on_card):
-    """Phases 16, 17 and 19 alone (`--dist-only train`: phase 19 alone):
-    every rank builds rmat(--scale) on its card (cuda:LOCAL_RANK under
-    torchrun) and its cuda results, then runs the phases over all ranks in
-    one process group."""
+    """Phases 16, 17, 19 and 21 alone (`--dist-only train`: phase 19
+    alone; `--dist-only tp`: phase 21 alone): every rank builds
+    rmat(--scale) on its card (cuda:LOCAL_RANK under torchrun) and its
+    cuda results, then runs the phases over all ranks in one process
+    group. On the card rank 0 prints a {"kernels": [...]} line of
+    flash_attention.bf16 with phase 21's launches when phase 21 ran."""
     import torch
     from repro_torch.graph import rmat
     t0 = time.perf_counter()
@@ -3053,11 +3327,22 @@ def dist_only(args, on_card):
             phase("grid", t0, f"ranks {ranks}: sssp_2d == cuda sssp, pagerank_2d == float64 "
                   "iteration, pod bc == cuda bc, distributed autotune agrees across ranks")
             del g, want
-        t0 = time.perf_counter()
-        train_dist_phase(args.seed, on_card)
-        phase("train-dist", t0, f"ranks {ranks}: sharded qwen2.5-3b, resumed on other meshes "
-              "== unbroken run; held bytes == the specs'")
+        if args.dist_only in ("all", "train"):
+            t0 = time.perf_counter()
+            train_dist_phase(args.seed, on_card, on_card and args.trace)
+            phase("train-dist", t0, f"ranks {ranks}: qwen2.5-3b on the split plan, resumed on "
+                  "other meshes == unbroken run, (1, 4) == one rank; held bytes == the specs'; "
+                  "census == dry run")
+        tp = None
+        if args.dist_only in ("all", "tp"):
+            t0 = time.perf_counter()
+            tp = tp_prefill_phase(args.seed, on_card)
+            phase("tp-prefill", t0, f"ranks {ranks}: qwen2.5-3b prefill of {tp['seq']} tokens "
+                  f"split over 'model' {tp['prefill_s']:.3f} s ({tp['tokens_per_s']:.0f} "
+                  "tokens/s), == the one-card prefill")
     if int(os.environ.get("RANK", 0)) == 0:
+        if tp is not None and tp["flash"] is not None:
+            print(json.dumps({"kernels": [tp["flash"]]}))
         print("dist-only run finished: not a smoke run")
 
 
@@ -3069,9 +3354,10 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", action="store_true",
                     help="profile one more call of each cuda run (phase 7)")
-    ap.add_argument("--dist-only", nargs="?", const="all", choices=("all", "train"),
-                    help="the graph, its cuda results and phases 16, 17 and 19 alone ('train': "
-                         "phase 19 alone; under torchrun: one rank a card); not a smoke run")
+    ap.add_argument("--dist-only", nargs="?", const="all", choices=("all", "train", "tp"),
+                    help="the graph, its cuda results and phases 16, 17, 19 and 21 alone "
+                         "('train': phase 19 alone, 'tp': phase 21 alone; under torchrun: one "
+                         "rank a card); not a smoke run")
     args = ap.parse_args(argv)
     on_card = args.device == "cuda"
 

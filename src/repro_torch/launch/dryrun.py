@@ -14,27 +14,38 @@ roofline terms. Output: one JSON per cell under launch_out/, with the
 reference's keys (those of XLA's own cost analysis, and the generated code
 size, are null), so `launch.report` reads the records of either package.
 
-The programs are the port's own, as a rank of it runs them:
+The programs are the port's own, as a rank of it runs them, on the plan
+the layout gives the model (`Layout.plan_for`; the record's "plan"):
 
   * train   — `make_train_step(..., impl="chunked", remat=True)` on this
               rank's rows of the global batch in `_microbatches`
               microbatches. The census runs two microbatches (one where
               the cell has one) and scales the dot FLOPs and bytes to all
               of them: every microbatch has the same shapes, and nothing
-              outside them multiplies matrices. Collectives run once a
-              step (the gathers at its start, the gradients' reduce-scatter
-              and the norm's all-reduce at its end), so they are not scaled;
-  * prefill — the parameters gathered whole, then the forward with
-              `last_only` over this rank's rows (`impl="chunked"`);
-  * decode  — the parameters gathered whole, then one `decode_step` of this
+              outside them multiplies matrices. On the "gathered" plan the
+              collectives run once a step (the gathers at its start, the
+              gradients' reduce-scatter and the norm's all-reduce at its
+              end) and are not scaled. On the "split" plan (the dense
+              family) each microbatch gathers every layer over "data"
+              (one all-gather a layer, twice under remat), reduces its heads' and ff columns'
+              products over "model" and reduce-scatters its gradients, so
+              a cell of more than two microbatches is also counted with
+              one: the difference is one microbatch's collectives, and the
+              rest runs once a step;
+  * prefill — the forward with `last_only` over this rank's rows
+              (`impl="chunked"`): on the split plan its heads, ff columns
+              and vocab block, each layer gathered over "data" as it runs;
+              on the gathered plan the parameters gathered whole first;
+  * decode  — the gathered plan for every family (ROADMAP item 15b): the
+              parameters gathered whole, then one `decode_step` of this
               rank's rows against `init_cache` of them.
 
-The dry run shows what the port's sharding does: each rank gathers every
-parameter whole before it computes (ROADMAP T2), so the gathers are in
-its collective bytes and the whole parameters in its peak. The kernels of
-the port launch through ctypes and are invisible to the census, so every
-program runs the plain "chunked" attention, as the reference's dry run
-does.
+On the split plan a rank holds one layer whole at most, and computes its
+share of the heads, ff columns and vocab; on the gathered plan every
+parameter is in its peak and its collective bytes, and the "model" ranks
+repeat one another's work. The kernels of the port launch through ctypes
+and are invisible to the census, so every program runs the plain
+"chunked" attention, as the reference's dry run does.
 
 Memory, per rank: `argument_size_in_bytes` is what the rank holds when the
 program starts — its blocks of the parameters and of m and v
@@ -139,47 +150,68 @@ def train_census(cfg, *, seq: int, global_batch: int, microbatches: int,
     """The census of one train step of `cfg` on meta: this rank's rows of
     a `global_batch` × `seq` batch (all of it without a mesh) in
     `microbatches` microbatches, remat on; two microbatches are run and
-    the dot counts scaled to all of them."""
-    model = build(cfg, device=META)
-    state = init_state(model)
+    the dot counts scaled to all of them (on the split plan the
+    collectives too)."""
     rows = global_batch
     if mesh is not None:
-        state = sh.place(state, _layout(state.params, mesh, global_batch))
-        rows //= state.layout.batch_shards
+        rows //= math.prod(mesh.shape[a] for a in effective_batch_axes(mesh, global_batch))
     if rows % microbatches:
         raise ValueError(f"{rows} rows a rank do not split into {microbatches} microbatches")
     counted = min(microbatches, COUNTED_MICROBATCHES)
-    batch = input_specs(cfg, "train", rows // microbatches * counted, seq)
-    step = make_train_step(model, OptimizerConfig(total_steps=10_000),
-                           microbatches=counted, impl=impl, remat=True)
+
+    def step_census(run):
+        """The census of a step that runs `run` of the microbatches."""
+        model = build(cfg, device=META)
+        state = init_state(model)
+        if mesh is not None:
+            state = sh.place(state, _layout(state.params, mesh, global_batch))
+        batch = input_specs(cfg, "train", rows // microbatches * run, seq)
+        step = make_train_step(model, OptimizerConfig(total_steps=10_000),
+                               microbatches=run, impl=impl, remat=True)
+        arguments = [list(state.params.values()), state.opt["m"], state.opt["v"], batch]
+        return state, _census(lambda: step(state, batch)[1], arguments)
+
+    state, rec = step_census(counted)
+    ran = state.layout.plan_for(cfg) if mesh is not None else None
     held = sh.held_bytes(state)
-    arguments = [list(state.params.values()), state.opt["m"], state.opt["v"], batch]
-    rec = _census(lambda: step(state, batch)[1], arguments)
     rec["memory"]["argument_size_in_bytes"] = held + hlo_cost.nbytes(
         input_specs(cfg, "train", rows, seq))                # the whole step's inputs
     rec["flops"] = rec["flops"] // counted * microbatches
     rec["dot_bytes"] = rec["dot_bytes"] // counted * microbatches
-    rec.update(held_bytes=held,
+    scaled = "dot FLOPs and bytes x microbatches / microbatches_run"
+    if ran == "split" and microbatches > counted:
+        one = step_census(1)[1]["collective_bytes"]
+        each = rec["collective_bytes"] - one
+        rec["collective_bytes"] = one + each * (microbatches - 1)
+        scaled += ("; collective bytes: one microbatch's (the 2-microbatch run's less "
+                   "the 1-microbatch run's) x microbatches, plus the rest")
+    rec.update(held_bytes=held, plan=ran,
                census={"microbatches": microbatches, "microbatches_run": counted,
                        "rows": rows, "seq": seq, "impl": impl, "remat": True,
-                       "scaled": "dot FLOPs and bytes x microbatches / microbatches_run"})
+                       "scaled": scaled})
     return rec
 
 
 def serve_census(cfg, cell: ShapeCell, mesh) -> dict:
     """The census of a prefill or one decode step of `cell` on meta, this
-    rank's rows, the parameters gathered whole first."""
+    rank's rows: a prefill on the split plan runs the rank's blocks, every
+    other program gathers the parameters whole first."""
     model = build(cfg, device=META)
     params = dict(model.net.named_parameters())
     layout = _layout(params, mesh, cell.global_batch)
-    layout.shard_params(params)
+    ran = layout.plan_for(cfg) if cell.kind == "prefill" else "gathered"
+    if ran == "split":
+        sh.place_model(model, layout)
+    else:
+        layout.shard_params(params)
     rows = cell.global_batch // layout.batch_shards
     held = sum(p.numel() * p.element_size() for p in params.values())
     if cell.kind == "prefill":
         batch = input_specs(cfg, "prefill", rows, cell.seq_len)
 
         def program():
-            layout.gather_params(params)
+            if ran == "gathered":
+                layout.gather_params(params)
             return model(batch, impl="chunked", remat=True, last_only=True)[0]
         arguments = [list(params.values()), batch]
     else:
@@ -193,8 +225,9 @@ def serve_census(cfg, cell: ShapeCell, mesh) -> dict:
         arguments = [list(params.values()), tok, cache]
     with torch.no_grad():
         rec = _census(program, arguments)
-    rec.update(held_bytes=held, census={"rows": rows, "seq": cell.seq_len,
-                                        "impl": "chunked" if cell.kind == "prefill" else None})
+    rec.update(held_bytes=held, plan=ran,
+               census={"rows": rows, "seq": cell.seq_len,
+                       "impl": "chunked" if cell.kind == "prefill" else None})
     return rec
 
 
@@ -227,7 +260,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str = OUT_DIR):
           f"flops/dev {rec['flops']:.3e} | "
           f"args/dev {mem['argument_size_in_bytes'] / 2**30:.2f} GiB | "
           f"temp/dev {mem['temp_size_in_bytes'] / 2**30:.2f} GiB | "
-          f"coll/dev {rec['collective_bytes'] / 2**30:.3f} GiB | "
+          f"coll/dev {rec['collective_bytes'] / 2**30:.3f} GiB | plan {rec['plan']} | "
           f"bottleneck {r['bottleneck']} ({r['step_lower_bound_s'] * 1e3:.1f} ms)",
           flush=True)
     return rec

@@ -2,7 +2,9 @@
 
 PyTorch counterpart of `repro.launch.report`; it reads the records of
 either package's dry run. A cell fits when a rank's arguments and temps
-together stay under one card's memory.
+together stay under one card's memory. The last column is the port's plan
+(`launch.sharding.Layout.plan_for`: "split" or "gathered"; "—" in a
+record without one, such as the reference's).
 """
 from __future__ import annotations
 
@@ -31,14 +33,14 @@ def render_table(out_dir: str, mesh: str = "16x16") -> str:
     cells = load_cells(out_dir, mesh)
     lines = [
         "| arch | shape | compute s | memory s | collective s | bottleneck |"
-        " MODEL_FLOPS | useful frac | fits/dev |",
-        "|---|---|---|---|---|---|---|---|---|",
+        " MODEL_FLOPS | useful frac | fits/dev | plan |",
+        "|---|---|---|---|---|---|---|---|---|---|",
     ]
     for arch, cfg in ARCHS.items():
         for cell in shape_cells_for(cfg):
             rec = cells.get((arch, cell.name))
             if rec is None:
-                lines.append(f"| {arch} | {cell.name} | — | — | — | MISSING | | | |")
+                lines.append(f"| {arch} | {cell.name} | — | — | — | MISSING | | | | |")
                 continue
             t = rec["roofline"]
             mf = roofline.model_flops(cfg, cell) / rec["num_devices"]
@@ -49,7 +51,8 @@ def render_table(out_dir: str, mesh: str = "16x16") -> str:
             lines.append(
                 f"| {arch} | {cell.name} | {t['compute_s']:.3f} | "
                 f"{t['memory_s']:.3f} | {t['collective_s']:.3f} | "
-                f"{t['bottleneck']} | {mf:.2e} | {useful:.2f} | {fits} |")
+                f"{t['bottleneck']} | {mf:.2e} | {useful:.2f} | {fits} | "
+                f"{rec.get('plan') or '—'} |")
     return "\n".join(lines)
 
 

@@ -1,5 +1,6 @@
-"""Sharding rules (parameter / optimizer / batch / cache specs) and the
-placement of a train state on a mesh.
+"""Sharding rules (parameter / optimizer / batch / cache specs), the
+placement of a train state on a mesh, and the plan by which a rank
+computes with what it holds.
 
 PyTorch counterpart of `repro.launch.sharding`. The rules are the
 reference's, computed on its key paths and stacked shapes, so they give
@@ -18,31 +19,48 @@ names (the dim splits over their product, row-major). `named(mesh,
 specs, batch_axes)` gives the `Layout` that `place` puts a train state on,
 the counterpart of `jax.device_put(state, named(mesh, specs))`: each rank
 then holds only its block of every sharded parameter, of m and of v, and
-replicated leaves whole. The train step gathers the whole parameters over
-the axes that split them, runs this rank's rows of the batch,
-reduce-scatters each gradient into this rank's block (`reduce_grads`) and
-updates its blocks: hand-written collectives over the mesh's per-axis
-sub-groups. The gather is of the whole model, not one layer at a time, so
-a rank's peak holds every parameter and every gradient whole (ROADMAP,
-performance items). Compute is split over
-the batch axes only; the reference's GSPMD also splits it over "model",
-where the port gathers the weights instead (ROADMAP, performance items).
+replicated leaves whole, between steps and during them.
+
+How a rank computes with its blocks is the layout's plan
+(`Layout.plan_for`), what GSPMD derives from the same specs in the
+reference:
+
+  * "split" (the dense family, `SplitPlan`): each rank runs its block of
+    query heads, of ff columns and of vocab rows over "model" and its
+    rows of the batch over the batch axes; each layer's weights are
+    gathered over "data" when the layer runs, in one all-gather (inside
+    its remat, so the recompute gathers again), and freed after it, and
+    each gradient is reduce-scattered into the rank's block by the
+    backward of that gather (`launch.parallel`). A leaf the guard replicated over "model"
+    is computed replicated.
+  * "gathered" (the other families, and decode): the step gathers every
+    parameter whole over the axes that split it, runs this rank's rows,
+    reduce-scatters each gradient into this rank's block (`reduce_grads`)
+    and updates its blocks. Every rank of a "model" group then computes
+    the same rows, and its peak holds the whole model (ROADMAP item 15).
+
+The collectives are hand-written over the mesh's per-axis sub-groups.
 """
 from __future__ import annotations
 
+import copy
 import math
+import types
 
 import torch
 import torch.distributed as tdist
 
+from ..core.dist import Mesh1D
 from ..models.weights import STACKED, leaf_groups
+from .parallel import (copy_to, gather_many, gather_over, reduce_from, reduce_scatter,
+                       vocab_cross_entropy, vocab_embed)
 
 # param dims that shard over ('data' side, 'model' side)
 _IN_OUT = {"wq", "wk", "wv", "wz", "wi", "wf", "wo_gate", "in_proj",
            "w_gate", "w_up"}            # [d, X] → P(data, model)
 _OUT_IN = {"wo", "out", "out_proj", "w_down"}   # [X, d] → P(model, data)
 _STACKED = set(STACKED)
-_REDUCE_SCATTER = getattr(tdist, "reduce_scatter_single", None) or tdist.reduce_scatter_tensor
+_ONE = Mesh1D(group=None, size=1, rank=0, device=None)     # an axis of one rank: no collective
 
 
 class P(tuple):
@@ -203,10 +221,26 @@ class Layout:
     entry names axes (a, b, ...) splits into their product of equal
     blocks, row-major over those axes, as a jax NamedSharding lays it out."""
 
+    _plan = None    # "gathered" runs a dense model on the gathered plan: to compare the two
+
     def __init__(self, mesh, specs: dict, batch_axes=()):
         self.mesh = mesh
         self.specs = specs
         self.batch_axes = tuple(batch_axes)
+
+    def plan_for(self, cfg) -> str:
+        """How a model of `cfg` computes on this layout: "split" for the
+        dense family (`SplitPlan`), "gathered" for the others."""
+        return self._plan or ("split" if cfg.family == "dense" else "gathered")
+
+    def split_plan(self, cfg, params: dict) -> "SplitPlan":
+        """The split plan of a dense model of `cfg` with parameters `params`
+        (name → parameter, holding this rank's blocks)."""
+        return SplitPlan(self, cfg, params)
+
+    def axis(self, name) -> Mesh1D:
+        """The mesh's axis `name`; an axis the mesh lacks has one rank."""
+        return self.mesh.axis(name) if name in self.mesh.shape else _ONE
 
     def _split(self, name):
         """[(dim, axes)] for every dim of `name` split over more than one rank."""
@@ -288,7 +322,7 @@ class Layout:
                     if ax.size == 1:
                         continue
                     if a in self.batch_axes:
-                        g = _reduce_scatter(g, i, ax)
+                        g = reduce_scatter(g, i, ax)
                         summed.add(a)
                     else:
                         step = g.shape[i] // ax.size
@@ -301,6 +335,23 @@ class Layout:
                     tdist.all_reduce(g, group=ax.group)
             out[name] = g.div_(self.batch_shards)
         return out
+
+    def sum_blocks(self, blocks: dict) -> dict:
+        """The split plan's gradients, each this rank's block in f32 of the
+        gradient of its rows' mean loss, made the blocks of the global
+        batch's mean: the backward has already summed a leaf split over a
+        "data" that splits the batch (`parallel.gather_over`), so each
+        block is summed over the batch axes that remain, then divided by
+        the batch's shard count. In place; returns `blocks`."""
+        for name, g in blocks.items():
+            summed = "data" in self.batch_axes and any(
+                "data" in axes for _, axes in self._split(name))
+            for a in self.batch_axes:
+                ax = self.mesh.axis(a)
+                if ax.size > 1 and not (summed and a == "data"):
+                    tdist.all_reduce(g, group=ax.group)
+            g.div_(self.batch_shards)
+        return blocks
 
     def global_norm(self, blocks: dict):
         """The norm of the whole gradients from this rank's blocks (of
@@ -336,16 +387,6 @@ class Layout:
         return slice(idx * per, (idx + 1) * per)
 
 
-def _reduce_scatter(t, dim, ax):
-    """The sum of `t` over the ranks of axis `ax`, each keeping its block of
-    dim `dim` (the block at its coordinate)."""
-    src = t.movedim(dim, 0).contiguous()
-    out = torch.empty((src.shape[0] // ax.size,) + src.shape[1:], dtype=src.dtype,
-                      device=src.device)
-    _REDUCE_SCATTER(out, src, group=ax.group)
-    return out.movedim(0, dim)
-
-
 def named(mesh, specs: dict, batch_axes=()) -> Layout:
     """The layout of a train state on `mesh` by its parameter specs (the
     counterpart of the reference's NamedSharding tree)."""
@@ -355,12 +396,26 @@ def named(mesh, specs: dict, batch_axes=()) -> Layout:
 def place(state, layout: Layout):
     """Keeps only this rank's block of every parameter, m and v of a whole
     train state (every rank holds the same whole state before), and
-    returns the state carrying `layout`."""
-    layout.shard_params(state.params)
+    returns the state carrying `layout`; a model on the split plan gets
+    it installed (`place_model`)."""
+    place_model(state.model, layout)
     for group in ("m", "v"):
         state.opt[group] = {n: layout.block(n, t) for n, t in state.opt[group].items()}
     state.layout = layout
     return state
+
+
+def place_model(model, layout: Layout) -> str:
+    """Keeps only this rank's block of every parameter of a whole model
+    (`models.build`'s `Model`) and, on the split plan, installs the plan
+    (`set_constraint_mesh`); returns the plan's name. A model on the
+    gathered plan computes only after `layout.gather_params`."""
+    params = dict(model.net.named_parameters())
+    layout.shard_params(params)
+    plan = layout.plan_for(model.cfg)
+    if plan == "split":
+        model.net.set_constraint_mesh(layout)
+    return plan
 
 
 def held_bytes(state) -> int:
@@ -368,3 +423,195 @@ def held_bytes(state) -> int:
     tensors = list(state.params.values()) + list(state.opt["m"].values()) \
         + list(state.opt["v"].values())
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# --------------------------------------------------------------------------
+# the split plan: how a rank of a dense model computes with its blocks
+# --------------------------------------------------------------------------
+
+def _kv_heads(cfg, lo, hi):
+    """The KV heads [klo, khi) that query heads [lo, hi) read (head h reads
+    h // (H / Hkv)). They must share them in equal runs, as a GQA block's
+    query heads do (true of every dense config over 2 to 32 model ranks):
+    else it raises."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    klo, khi = lo // group, (hi - 1) // group + 1
+    n, nk = hi - lo, khi - klo
+    if n % nk or any((lo + j) // group - klo != j // (n // nk) for j in range(n)):
+        raise ValueError(f"{cfg.name}: query heads [{lo}, {hi}) read KV heads [{klo}, {khi}) "
+                         "unevenly; the split plan cannot run on this many model ranks")
+    return klo, khi
+
+
+class SplitPlan:
+    """The compute plan of a dense model on a `Layout` (the counterpart of
+    what GSPMD derives from the reference's specs and its activation
+    constraints), leaf by leaf:
+
+      wq, bq          column split: the rank's query heads [lo, hi) of
+                      H, H·r//m to H·(r+1)//m on "model" rank r of m
+                      (its own block of wq when m divides H; else wq is
+                      gathered over "model" for the layer and sliced);
+      wk, wv, bk, bv  the KV heads its query heads read (head h reads
+                      h // (H / Hkv)): its own block when m divides H and
+                      Hkv, else gathered over "model" and sliced;
+      wo              row split over the same heads, then `reduce_from`;
+      w_gate, w_up /  column / row split over the rank's ff block, then
+      w_down          `reduce_from`;
+      embed / unembed vocab split: `vocab_embed` on the rank's vocab rows
+                      and the logits of its vocab block
+                      (`vocab_cross_entropy`; `gather_vocab` for whole
+                      logits);
+      norms           replicated.
+
+    A replicated leaf used as a slice (bq to bv) passes `copy_to` first, so
+    its slices' gradients add into the whole leaf over "model". A group
+    (the heads, the ff columns, the vocab) whose leaves the guard put back
+    to replication over "model", or whose heads are fewer than the
+    "model" ranks, is computed replicated: its leaves whole, no collective
+    over "model". Before any of that a leaf split over "data" is gathered
+    over "data", a layer's leaves in one all-gather (`gather_layer`), the
+    backward summing each gradient into the rank's block when "data"
+    splits the batch.
+
+    Every rank of an axis makes the same collectives in the same order:
+    which leaves are gathered follows from the config and the mesh, never
+    from a rank's coordinates."""
+
+    def __init__(self, layout: Layout, cfg, params: dict):
+        if cfg.family != "dense":
+            raise ValueError(f"{cfg.name}: the split plan covers the dense family, "
+                             f"not {cfg.family!r}")
+        self.layout, self.cfg = layout, cfg
+        self.names = {id(p): n for n, p in params.items()}
+        self._gathered = {}          # id(leaf) → the leaf gathered over "data" (`gather_layer`)
+        self.model, self.data = layout.axis("model"), layout.axis("data")
+        self.data_summed = "data" in layout.batch_axes
+        m, r = self.model.size, self.model.rank
+        specs = layout.specs
+
+        def split(name, dim):
+            return name in specs and m > 1 and "model" in _axes(specs[name][dim])
+
+        def block(n):
+            return n * r // m, n * (r + 1) // m
+
+        h, hkv, ff = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+        self.heads = split("layers.0.attn.wq", 1) and h >= m
+        self.ff = split("layers.0.mlp.w_gate", 1)
+        self.vocab = split("embed", 0)
+        self.q, self.kv = (0, h), (0, hkv)
+        self.own_q = self.own_kv = False
+        if self.heads:
+            for i in range(m):       # every rank checks every rank: all raise or none
+                _kv_heads(cfg, h * i // m, h * (i + 1) // m)
+            self.q = block(h)
+            self.kv = _kv_heads(cfg, *self.q)
+            self.own_q = h % m == 0
+            self.own_kv = self.own_q and hkv % m == 0
+        self.f = block(ff) if self.ff else (0, ff)
+        self.v = block(cfg.vocab_padded) if self.vocab else (0, cfg.vocab_padded)
+
+    # -- leaves ----------------------------------------------------------------
+    def _data_dim(self, p):
+        """The dim of leaf `p` split over "data", None if none is."""
+        spec = self.layout.specs[self.names[id(p)]]
+        return next((i for i, e in enumerate(spec) if "data" in _axes(e)), None)
+
+    def gather_layer(self, module) -> "SplitPlan":
+        """The plan for one layer (`module`): its leaves split over "data"
+        gathered in one all-gather, whose backward reduce-scatters their
+        gradients in one collective (`parallel.gather_many`)."""
+        if self.data.size == 1:
+            return self
+        leaves = [p for p in module.parameters() if self._data_dim(p) is not None]
+        whole = gather_many(leaves, self.data, [self._data_dim(p) for p in leaves],
+                            summed=self.data_summed)
+        bound = copy.copy(self)
+        bound._gathered = {id(p): t for p, t in zip(leaves, whole)}
+        return bound
+
+    def _take(self, p, dim=None, lo=0, hi=0, own=False):
+        """`p`'s block with its "data" split gathered (by `gather_layer`,
+        else here). With `dim`: the slice [lo, hi) along `dim` of the leaf
+        whole over "model" (`own`: the rank's own block is that slice);
+        without: the whole leaf (a replicated group)."""
+        spec = self.layout.specs[self.names[id(p)]]
+        t = self._gathered.get(id(p), p)
+        mdim = None
+        for i, e in enumerate(spec):
+            if t is p and "data" in _axes(e) and self.data.size > 1:
+                t = gather_over(t, self.data, i, summed=self.data_summed)
+            if "model" in _axes(e) and self.model.size > 1:
+                mdim = i
+        if dim is None:
+            # every rank computes the whole group: its gradients are equal
+            return t if mdim is None else gather_over(t, self.model, mdim, summed=False)
+        if own:
+            return t
+        t = copy_to(t, self.model) if mdim is None else gather_over(t, self.model, mdim)
+        return t.narrow(dim, lo, hi - lo)
+
+    def attention_weights(self, attn):
+        """The rank's weights of an `Attention` block, in its attribute names
+        (`models.attention.attention_block` takes the head counts from
+        them), with `split` (the output needs `leave`)."""
+        cfg, hd = attn.cfg, attn.cfg.hd
+        names = ["wq", "wk", "wv", "wo"] + (["bq", "bk", "bv"] if cfg.qkv_bias else [])
+        if not self.heads:
+            w = {n: self._take(getattr(attn, n)) for n in names}
+        else:
+            (lo, hi), (klo, khi) = self.q, self.kv
+            q, kv = (lo * hd, hi * hd, self.own_q), (klo * hd, khi * hd, self.own_kv)
+            cols = {"wq": (1, *q), "wk": (1, *kv), "wv": (1, *kv), "wo": (0, *q),
+                    "bq": (0, lo * hd, hi * hd, False), "bk": (0, klo * hd, khi * hd, False),
+                    "bv": (0, klo * hd, khi * hd, False)}
+            w = {n: self._take(getattr(attn, n), *cols[n]) for n in names}
+        return types.SimpleNamespace(cfg=cfg, split=self.heads,
+                                     q_norm=getattr(attn, "q_norm", None),
+                                     k_norm=getattr(attn, "k_norm", None), **w)
+
+    def mlp_weights(self, mlp):
+        """(w_gate, w_up, w_down): the rank's ff columns and rows."""
+        if not self.ff:
+            return tuple(self._take(w) for w in (mlp.w_gate, mlp.w_up, mlp.w_down))
+        lo, hi = self.f
+        return (self._take(mlp.w_gate, 1, lo, hi, True), self._take(mlp.w_up, 1, lo, hi, True),
+                self._take(mlp.w_down, 0, lo, hi, True))
+
+    # -- activations -----------------------------------------------------------
+    def enter(self, x, split: bool):
+        """The input of a group's column-split products."""
+        return copy_to(x, self.model) if split else x
+
+    def leave(self, y, split: bool):
+        """The output of a group's row-split product, whole."""
+        return reduce_from(y, self.model) if split else y
+
+    def embed(self, table, tokens):
+        """The embedding rows of `tokens` from the rank's vocab block."""
+        if not self.vocab:
+            return self._take(table)[tokens]
+        t = self._take(table, 0, *self.v, True)
+        return vocab_embed(t, tokens, self.v[0], self.model)
+
+    def logits(self, x, net):
+        """f32 logits of the rank's vocab block (whole without a vocab split)."""
+        x = self.enter(x, self.vocab)
+        lo, hi = self.v
+        if net.cfg.tie_embeddings:
+            w = self._take(net.embed, 0, lo, hi, True) if self.vocab else self._take(net.embed)
+            return (x @ w.T).float()
+        w = self._take(net.unembed, 1, lo, hi, True) if self.vocab else self._take(net.unembed)
+        return (x @ w).float()
+
+    def gather_vocab(self, logits):
+        """Whole logits from the ranks' vocab blocks, equal on every rank."""
+        if not self.vocab:
+            return logits
+        return gather_over(logits, self.model, logits.ndim - 1)
+
+    def cross_entropy(self, logits, labels):
+        """Mean NLL from the logits of `logits` (the rank's vocab block)."""
+        return vocab_cross_entropy(logits, labels, self.v[0],
+                                   self.model if self.vocab else _ONE)

@@ -9,6 +9,12 @@ PyTorch counterpart of `repro.models.attention`. Implementation selection:
 
 The decode path updates its KV cache in place (the reference returns a new
 cache; here the same dict comes back, written at its `length` slot).
+
+Under a split plan (`launch.sharding.SplitPlan`, installed by
+`Transformer.set_constraint_mesh`) a rank runs its own query heads and the
+KV heads they read: `attention_block` and `_project_qkv` take the head
+counts from the weights they get, so the same code runs a whole block and
+a rank's share of one.
 """
 from __future__ import annotations
 
@@ -44,14 +50,22 @@ class Attention(nn.Module):
             self.q_norm = RMSNorm(hd, dtype, dev)
             self.k_norm = RMSNorm(hd, dtype, dev)
 
-    def forward(self, x, positions, *, causal=True, impl="ref", kv=None):
-        return attention_block(self, x, positions, causal=causal, impl=impl, kv=kv)
+    def forward(self, x, positions, *, causal=True, impl="ref", kv=None, plan=None):
+        """With `plan`: the rank's heads, through the plan's weights, the
+        output summed over "model" (`plan.leave`)."""
+        if plan is None:
+            return attention_block(self, x, positions, causal=causal, impl=impl, kv=kv)
+        w = plan.attention_weights(self)
+        o = attention_block(w, plan.enter(x, w.split), positions, causal=causal, impl=impl,
+                            kv=kv)
+        return plan.leave(o, w.split)
 
 
 def _project_qkv(p: Attention, x, positions):
     cfg = p.cfg
     b, s, _ = x.shape
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
+    h, hkv = p.wq.shape[-1] // hd, p.wk.shape[-1] // hd     # the heads `p` holds
     q = x @ p.wq
     k = x @ p.wk
     v = x @ p.wv
@@ -113,7 +127,8 @@ def _repeat_kv(k, groups):
 
 def attention_block(p: Attention, x, positions, *, causal=True, impl="ref", kv=None):
     """Self-attention. kv: optional (k_ext, v_ext) [B, S, Hkv, D] to attend
-    over instead (cross-attention); x provides queries only in that case."""
+    over instead (cross-attention); x provides queries only in that case.
+    The head counts are those of `p`'s weights."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     cfg = p.cfg
@@ -124,7 +139,8 @@ def attention_block(p: Attention, x, positions, *, causal=True, impl="ref", kv=N
     q = q.transpose(1, 2)                       # [B,H,S,D]
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
-    groups = cfg.n_heads // cfg.n_kv_heads
+    h = q.shape[1]
+    groups = h // k.shape[1]
     if impl == "kernel":
         o = gqa_attention(q, k, v, causal=causal)   # handles GQA repeat
     else:
@@ -133,11 +149,11 @@ def attention_block(p: Attention, x, positions, *, causal=True, impl="ref", kv=N
         if impl == "chunked":
             o = chunked_attention(q, k, v, causal=causal)
         else:
-            bh = b * cfg.n_heads
+            bh = b * h
             o = attention_ref(q.reshape(bh, s, cfg.hd), k.reshape(bh, -1, cfg.hd),
                               v.reshape(bh, -1, cfg.hd), causal=causal)
-            o = o.reshape(b, cfg.n_heads, s, cfg.hd)
-    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
+            o = o.reshape(b, h, s, cfg.hd)
+    o = o.transpose(1, 2).reshape(b, s, h * cfg.hd)
     return o @ p.wo
 
 

@@ -5,10 +5,11 @@ PyTorch counterpart of `repro.models.layers`. Weights keep the reference's
 tree as a copy. Inits draw from a `torch.Generator` with the reference's
 distributions (not its numbers: the two generators differ). `remat_call`
 is the reference's `jax.checkpoint` on a layer body. The reference's
-activation-sharding hooks (`set_constraint_mesh`, `maybe_constrain`) have
-no counterpart: `launch.sharding` splits compute by rows of the batch and
-gathers the weights, so no activation is split over "model" and a
-constraint would have nothing to move.
+activation-sharding hooks (`set_constraint_mesh`, `maybe_constrain`)
+become the split plan of a dense model (`launch.sharding.SplitPlan`),
+installed per model by `Transformer.set_constraint_mesh`: `MLP` and
+`Attention` take it as `plan` and run the rank's ff columns and heads
+through it; with no plan they compute what they always did.
 """
 from __future__ import annotations
 
@@ -122,6 +123,13 @@ class MLP(nn.Module):
         self.w_up = nn.Parameter(dense_init((d, ff), dtype, generator=generator))
         self.w_down = nn.Parameter(dense_init((ff, d), dtype, generator=generator))
 
-    def forward(self, x):
-        h = self.act(x @ self.w_gate) * (x @ self.w_up)
-        return h @ self.w_down
+    def forward(self, x, plan=None):
+        """With `plan` (a split plan): the rank's ff columns, the output
+        summed over "model"."""
+        if plan is None:
+            h = self.act(x @ self.w_gate) * (x @ self.w_up)
+            return h @ self.w_down
+        w_gate, w_up, w_down = plan.mlp_weights(self)
+        x = plan.enter(x, plan.ff)
+        h = self.act(x @ w_gate) * (x @ w_up)
+        return plan.leave(h @ w_down, plan.ff)

@@ -17,9 +17,16 @@ layer with its shared-attention call, an mLSTM layer; not the sLSTM
 blocks, as in the reference) runs under `layers.remat_call`: its
 activations are recomputed in the backward pass instead of kept, the
 reference's `jax.checkpoint` on its scan body. Serving runs under
-`inference_mode`, where it has no effect. The reference's sharding
-constraint on the logits has no counterpart: `launch.sharding` splits
-compute by rows of the batch, not over "model" (ROADMAP, item T2).
+`inference_mode`, where it has no effect.
+
+`set_constraint_mesh(layout)` installs a layout's split plan on a dense
+model whose parameters hold this rank's blocks (`launch.sharding.place`
+does it): the counterpart of the reference's `set_constraint_mesh` and of
+its constraint pinning the logits vocab-split. The forward then runs the
+embedding, each layer and the logits through the plan (each layer's
+gathers inside its remat body, so the recompute gathers again) and returns
+the logits of the rank's vocab block, or with `last_only` the whole
+last-token logits gathered over "model".
 """
 from __future__ import annotations
 
@@ -53,18 +60,22 @@ class DenseLayer(nn.Module):
         else:
             self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, generator=generator)
 
-    def ffn(self, x, cfg):
+    def ffn(self, x, cfg, plan=None):
         """The FFN and its aux loss (0.0 without experts)."""
         if cfg.family == "moe":
             return self.moe(x, cfg)
-        return self.mlp(x), 0.0
+        return self.mlp(x, plan), 0.0
 
-    def forward(self, x, positions, impl, cfg):
-        """Returns (x after the layer, the FFN's aux loss)."""
+    def forward(self, x, positions, impl, cfg, plan=None):
+        """Returns (x after the layer, the FFN's aux loss); with `plan` the
+        rank's heads and ff columns run through it, the layer's weights
+        gathered over "data" first (`SplitPlan.gather_layer`)."""
+        if plan is not None:
+            plan = plan.gather_layer(self)
         scale = cfg.scale_depth / (cfg.n_layers ** 0.5) if cfg.scale_depth else 1.0
-        h = self.attn(self.ln1(x, cfg.norm_eps), positions, causal=True, impl=impl)
+        h = self.attn(self.ln1(x, cfg.norm_eps), positions, causal=True, impl=impl, plan=plan)
         x = x + h * scale
-        h, aux = self.ffn(self.ln2(x, cfg.norm_eps), cfg)
+        h, aux = self.ffn(self.ln2(x, cfg.norm_eps), cfg, plan)
         return x + h * scale, aux
 
     def decode(self, x, lc, pos, cfg):
@@ -93,6 +104,8 @@ class Transformer(nn.Module):
       hybrid     — layers (ModuleList of Mamba2) and shared_attn (a DenseLayer);
       ssm        — mlstm (ModuleList of MLSTM) and slstm (ModuleList of SLSTM).
     The parameters land on the generator's device."""
+
+    plan = None        # the installed split plan (`set_constraint_mesh`)
 
     def __init__(self, cfg, *, generator: torch.Generator):
         super().__init__()
@@ -123,18 +136,30 @@ class Transformer(nn.Module):
     def _w_out(self):
         return self.embed.T if self.cfg.tie_embeddings else self.unembed
 
+    def set_constraint_mesh(self, layout):
+        """Installs the split plan of `layout` (a `launch.sharding.Layout`
+        whose blocks the parameters hold) on this dense model; None
+        removes it. The reference's `set_constraint_mesh`, per model."""
+        if layout is None:
+            self.plan = None
+            return
+        self.plan = layout.split_plan(self.cfg, dict(self.named_parameters()))
+
     def forward(self, tokens, *, impl="ref", remat: bool = True, last_only: bool = False):
         """tokens: [B, S] integer. Returns (logits [B, S, V] f32 — [B, 1, V]
         with last_only —, aux: the MoE layers' summed load-balance loss, a
-        0-d f32 tensor, 0 for the other families)."""
-        cfg = self.cfg
-        x = self.embed[tokens] * cfg.scale_emb
+        0-d f32 tensor, 0 for the other families). Under a split plan the
+        logits are those of the rank's vocab block [B, S, V / m], and
+        [B, 1, V] whole with last_only."""
+        cfg, plan = self.cfg, self.plan
+        x = (self.embed[tokens] if plan is None else plan.embed(self.embed, tokens)) \
+            * cfg.scale_emb
         b, s = x.shape[:2]
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family in ("dense", "moe"):
             for layer in self.layers:
-                x, a = remat_call(remat, layer, x, positions, impl, cfg)
+                x, a = remat_call(remat, layer, x, positions, impl, cfg, plan)
                 aux = aux + a
         elif cfg.family == "hybrid":
             sites = set(_attn_sites(cfg))
@@ -154,7 +179,10 @@ class Transformer(nn.Module):
         x = self.ln_f(x, cfg.norm_eps)
         if last_only:      # prefill: only the next-token logits are needed
             x = x[:, -1:]
-        return (x @ self._w_out()).float(), aux
+        if plan is None:
+            return (x @ self._w_out()).float(), aux
+        logits = plan.logits(x, self)
+        return (plan.gather_vocab(logits) if last_only else logits), aux
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         """dense, moe: {"kv": one `init_kv_cache` dict per layer};
@@ -177,8 +205,13 @@ class Transformer(nn.Module):
 
     def decode_step(self, tokens, cache: dict, pos: int):
         """tokens: [B, 1]; pos: the position. Returns (logits [B, V] f32,
-        cache), the cache updated in place."""
+        cache), the cache updated in place. Decode runs whole parameters:
+        under a split plan it raises."""
         cfg = self.cfg
+        if self.plan is not None:
+            raise ValueError(f"{cfg.name}: decode runs the gathered plan; gather the "
+                             "parameters (Layout.gather_params) and remove the split plan "
+                             "(set_constraint_mesh(None)) first")
         x = self.embed[tokens] * cfg.scale_emb
         if cfg.family in ("dense", "moe"):
             for layer, lc in zip(self.layers, cache["kv"]):

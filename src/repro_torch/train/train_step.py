@@ -9,11 +9,18 @@ branch); with one microbatch they stay in the parameter dtype, as
 `jax.value_and_grad` gives them.
 
 A state placed on a mesh by `launch.sharding` carries its `layout`: each
-rank then holds only its block of every sharded parameter, m and v
-between steps. The step gathers the whole parameters for the forward and
-backward over this rank's rows of the batch, reduce-scatters each
-gradient's batch mean into this rank's block, takes the global norm from
-the blocks, and updates only the blocks.
+rank then holds only its block of every sharded parameter, m and v. On
+the split plan (a dense model: `launch.sharding.SplitPlan`, installed on
+the model by `place`) the step never gathers a whole model: the forward
+and backward of this rank's rows run its heads, ff columns and vocab
+block, each layer gathered over "data" as it runs; the loss is
+`vocab_cross_entropy` of the rank's vocab block; each microbatch's
+gradient blocks, already reduce-scattered by the backward, accumulate into
+f32 blocks (`Layout.sum_blocks` sums what remains over the batch axes). On
+the gathered plan (the other families) the step gathers the whole
+parameters, runs this rank's rows, reduce-scatters each gradient's batch
+mean into this rank's block and shards the parameters back. Either way it
+takes the global norm from the blocks and updates only the blocks.
 """
 from __future__ import annotations
 
@@ -56,10 +63,12 @@ def cross_entropy(logits, labels):
 
 
 def make_loss_fn(model, *, impl="ref", remat=True):
-    """loss_fn(batch) → (ce + aux, {"ce", "aux"})."""
+    """loss_fn(batch) → (ce + aux, {"ce", "aux"}); on a split plan the
+    cross entropy of the rank's vocab block (`SplitPlan.cross_entropy`)."""
     def loss_fn(batch):
         logits, aux = model(batch, impl=impl, remat=remat)
-        ce = cross_entropy(logits, batch["labels"])
+        plan = getattr(model.net, "plan", None)
+        ce = (cross_entropy if plan is None else plan.cross_entropy)(logits, batch["labels"])
         return ce + aux, {"ce": ce, "aux": aux}
     return loss_fn
 
@@ -80,9 +89,13 @@ def make_train_step(model, oc: OptimizerConfig, *, microbatches: int = 1,
 
     def train_step(state: TrainState, batch: dict):
         params, layout = state.params, state.layout
-        if layout is not None:
+        plan = getattr(model.net, "plan", None)
+        if plan is not None and plan.layout is not layout:
+            raise ValueError("the model's split plan is not the state's layout: place the "
+                             "state with launch.sharding.place")
+        if layout is not None and plan is None:
             layout.gather_params(params)
-        if microbatches == 1:
+        if microbatches == 1 and plan is None:
             loss, parts, grads = value_and_grad(params, batch)
         else:
             rows = next(iter(batch.values())).shape[0]
@@ -105,9 +118,12 @@ def make_train_step(model, oc: OptimizerConfig, *, microbatches: int = 1,
             loss = loss / microbatches
             parts = {"ce": ce / microbatches, "aux": loss - ce / microbatches}
         gnorm = None
-        if layout is not None:
+        if plan is not None:
+            grads = layout.sum_blocks(grads)
+        elif layout is not None:
             layout.shard_params(params)
             grads = layout.reduce_grads(grads)
+        if layout is not None:
             gnorm = layout.global_norm(grads)
             loss, parts = layout.mean(loss), {k: layout.mean(v) for k, v in parts.items()}
         _, _, om = adamw_update(oc, params, grads, state.opt, grad_norm=gnorm)

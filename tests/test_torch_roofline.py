@@ -183,6 +183,23 @@ def test_dry_run_scaling_equals_the_whole_steps_census():
     assert rec["held_bytes"] == sh.held_bytes(state)
 
 
+def test_split_plan_cuts_a_ranks_flops(monkeypatch):
+    """A dense smoke cell on a fake world of 8 ranks, mesh (2, 4): the
+    split plan's census counts at most 0.3x the dot FLOPs a rank of the
+    gathered plan (whose 4 "model" ranks repeat one another's rows), holds
+    the same bytes, and its record names its plan."""
+    cfg = dataclasses.replace(configs.ARCHS["qwen2.5-3b"].smoke(), n_layers=2)
+    with dryrun.fake_world(8):
+        mesh = lt.make_mesh("2,4", device="meta")
+        split = dryrun.train_census(cfg, seq=32, global_batch=8, microbatches=2, mesh=mesh)
+        monkeypatch.setattr(sh.Layout, "_plan", "gathered")
+        gathered = dryrun.train_census(cfg, seq=32, global_batch=8, microbatches=2, mesh=mesh)
+    assert split["plan"] == "split" and gathered["plan"] == "gathered"
+    assert 0 < split["flops"] <= 0.3 * gathered["flops"]
+    assert split["held_bytes"] == gathered["held_bytes"]
+    assert split["memory"]["temp_size_in_bytes"] < gathered["memory"]["temp_size_in_bytes"]
+
+
 # --- roofline ------------------------------------------------------------------
 
 def test_roofline_terms_and_bottleneck():

@@ -374,11 +374,135 @@ def run_moments(payload, mesh):
     return out
 
 
+def split_case_arrays(seed, shapes):
+    """The f32 arrays of a collectives case, drawn from `seed` (the same on
+    every rank and in the parent)."""
+    rng = np.random.default_rng(seed)
+    return {k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
+
+
+SPLIT_CASE_SHAPES = {"x": (4, 3, 8), "w_gate": (8, 12), "w_up": (8, 12), "w_down": (12, 8),
+                     "cot": (4, 3, 8), "table": (16, 8), "logits": (2, 3, 16)}
+
+
+def run_split_functions(payload, mesh):
+    """payload: [(case_id, seed)]. The world is one "model" axis for the
+    split MLP (column-split w_gate and w_up, row-split w_down, `copy_to`
+    and `reduce_from`), the vocab embedding and `vocab_cross_entropy`, and
+    one "data" axis for `gather_over` (this rank's rows of x against the
+    gathered rows of w_gate; summed, and unsummed on the same rows) and
+    `gather_many` (w_gate's rows and w_down's columns in one gather).
+    Each case returns this rank's outputs and gradients."""
+    import torch.nn.functional as F
+    from repro_torch.core import dist
+    from repro_torch.launch import parallel as par
+    out = {}
+    for cid, seed in payload:
+        a = {k: torch.from_numpy(v) for k, v in split_case_arrays(seed, SPLIT_CASE_SHAPES).items()}
+        model = dist.make_mesh((1, mesh.size), ("data", "model"), device="cpu").axis("model")
+        data = dist.make_mesh((mesh.size, 1), ("data", "model"), device="cpu").axis("data")
+        res = {}
+
+        def block(t, dim, ax):
+            return par.block_of(t, dim, ax).clone().requires_grad_()
+
+        x = a["x"].clone().requires_grad_()
+        wg, wu, wd = block(a["w_gate"], 1, model), block(a["w_up"], 1, model), \
+            block(a["w_down"], 0, model)
+        xi = par.copy_to(x, model)
+        y = par.reduce_from((F.silu(xi @ wg) * (xi @ wu)) @ wd, model)
+        (y * a["cot"]).sum().backward()
+        res["mlp"] = {k: host(v) for k, v in dict(y=y.detach(), x=x.grad, w_gate=wg.grad,
+                                                   w_up=wu.grad, w_down=wd.grad).items()}
+
+        table = block(a["table"], 0, model)
+        tokens = torch.arange(12).reshape(4, 3) * 5 % 16
+        e = par.vocab_embed(table, tokens, table.shape[0] * model.rank, model)
+        (e * a["cot"]).sum().backward()
+        res["embed"] = {"y": host(e.detach()), "table": host(table.grad)}
+
+        logits = block(a["logits"], 2, model)
+        labels = torch.arange(6).reshape(2, 3) * 3 % 16
+        ce = par.vocab_cross_entropy(logits, labels, logits.shape[2] * model.rank, model)
+        ce.backward()
+        res["ce"] = {"loss": float(ce), "logits": host(logits.grad)}
+
+        for summed in (True, False):
+            w = block(a["w_gate"], 0, data)
+            rows = par.block_of(a["x"], 0, data) if summed else a["x"]
+            g = par.gather_over(w, data, 0, summed=summed)
+            ((rows @ g) ** 2).sum().backward()
+            res[f"gather_summed={summed}"] = {"w": host(g.detach()), "grad": host(w.grad)}
+            w1, w2 = block(a["w_gate"], 0, data), block(a["w_down"], 1, data)
+            g1, g2 = par.gather_many([w1, w2], data, [0, 1], summed=summed)
+            (((rows @ g1) @ g2) ** 2).sum().backward()
+            res[f"gather_many_summed={summed}"] = {
+                "w1": host(g1.detach()), "w2": host(g2.detach()),
+                "grad1": host(w1.grad), "grad2": host(w2.grad)}
+        out[cid] = res
+    return out
+
+
+def run_split_steps(payload, mesh):
+    """payload: [(case_id, arch, reference arrays, mesh spec, steps,
+    microbatches, seq, global batch, plan)]. The arch's smoke config at 2
+    layers in f32, holding the reference's weights (`from_reference`),
+    placed on the mesh (plan None: the family's, the split plan;
+    "gathered": the whole parameters gathered each step) and trained
+    `steps` steps on its rows of the global batches of `launch.train`'s
+    data; on the split plan first its split prefill's last-token logits
+    (`impl="chunked"`) of step 0's tokens. Each rank returns the losses,
+    grad norms and its held bytes, the plan's name, the logits and its
+    plan's own-block choices (split plan), and (rank 0) every parameter
+    gathered."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import train as lt
+    from repro_torch.launch.mesh import effective_batch_axes
+    from repro_torch.models.weights import from_reference
+    from repro_torch.train import OptimizerConfig, init_state, make_train_step
+    out = {}
+    for cid, arch, arrays, spec, steps, mb, seq, gb, forced in payload:
+        cfg = dataclasses.replace(ARCHS[arch].smoke(), n_layers=2, dtype="float32")
+        m = lt.make_mesh(spec, device="cpu")
+        model = from_reference(arrays, cfg, device="cpu")
+        state = init_state(model)
+        lay = sh.named(m, sh.param_specs(state.params, dict(m.shape)),
+                       effective_batch_axes(m, gb))
+        lay._plan = forced
+        state = sh.place(state, lay)
+        plan = model.net.plan
+        dc = lt.data_config(cfg, seq, gb)
+        rows = lay.rows(gb)
+        prefill = None
+        if plan is not None:
+            with torch.no_grad():
+                prefill, _ = model(lt.batch_for(cfg, dc, 0, "cpu", rows), impl="chunked",
+                                   last_only=True)
+        step = make_train_step(model, OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10),
+                               microbatches=mb)
+        hist = []
+        for i in range(steps):
+            state, met = step(state, lt.batch_for(cfg, dc, i, "cpu", rows))
+            hist.append(dict(loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+                             lr=float(met["lr"]), held_bytes=sh.held_bytes(state)))
+        whole = {n: host(lay.gather(n, p.detach())) for n, p in state.params.items()}
+        choices = None if plan is None else dict(
+            heads=plan.heads, ff=plan.ff, vocab=plan.vocab, own_q=plan.own_q,
+            own_kv=plan.own_kv, q=plan.q, kv=plan.kv)
+        out[cid] = dict(history=hist, prefill=None if prefill is None else host(prefill),
+                        rows=[rows.start, rows.stop], ran=lay.plan_for(cfg), plan=choices,
+                        params=whole if mesh.rank == 0 else None)
+    return out
+
+
 def run_cases(payload: dict, mesh) -> dict:
     """Each section of the payload ("programs", "exchanges", "gathers",
-    "grid", "pods", "tune", "train", "reduce", "moments"), in that order on
-    every rank."""
+    "grid", "pods", "tune", "train", "reduce", "moments", "split_functions",
+    "split_steps"), in that order on every rank."""
     jobs = {"programs": run_programs, "exchanges": run_exchanges, "gathers": run_gathers,
             "grid": run_grid, "pods": run_pods, "tune": run_tune, "train": run_train,
-            "reduce": run_reduce, "moments": run_moments}
+            "reduce": run_reduce, "moments": run_moments,
+            "split_functions": run_split_functions, "split_steps": run_split_steps}
     return {k: jobs[k](payload[k], mesh) for k in jobs if k in payload}
