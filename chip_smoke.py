@@ -4,9 +4,10 @@
     python3 chip_smoke.py                          # the smoke run: one card, RMAT scale 22
     python3 chip_smoke.py --trace                  # ... and where each run's time goes
     python3 chip_smoke.py --scale 10 --device cpu  # rehearsal of the plain versions
-    torchrun --nproc-per-node 4 chip_smoke.py --dist-only   # phases 16, 17, 19, 21 on 4 cards
+    torchrun --nproc-per-node 4 chip_smoke.py --dist-only   # phases 16, 17, 19, 21, 22 on 4 cards
     torchrun --nproc-per-node 4 chip_smoke.py --dist-only train   # phase 19 alone
     torchrun --nproc-per-node 4 chip_smoke.py --dist-only tp      # phase 21 alone
+    torchrun --nproc-per-node 4 chip_smoke.py --dist-only decode  # phase 22 alone
 
 Phases, each printed with its own seconds; any failure exits non-zero:
 
@@ -184,9 +185,9 @@ graph:
                rank's schedule and record the same (an all-gather of a
                digest), the winner's dist equal to `cuda`'s.
 
-`--dist-only` runs the graph, its `cuda` baselines and phases 16, 17, 19
-and 21 alone (`--dist-only train`: phase 19 alone, `--dist-only tp`:
-phase 21 alone); under `torchrun
+`--dist-only` runs the graph, its `cuda` baselines and phases 16, 17, 19,
+21 and 22 alone (`--dist-only train`: phase 19 alone, `--dist-only tp`:
+phase 21 alone, `--dist-only decode`: phase 22 alone); under `torchrun
 --nproc-per-node 4 chip_smoke.py --dist-only` (one card a rank, NCCL)
 phase 17 takes the grids (2, 2), (1, 4) and (4, 1) and the pods (2, 2)
 and (4, 1), a pod count above 1 holding `_gather_elems` to the sum of
@@ -194,7 +195,7 @@ each pod's slice run alone; only rank 0 prints. On the card rank 0 ends
 with a {"kernels": [...]} line of flash_attention.bf16 with phase 21's
 launches, timed at its shape (BH = 4, S = 32,768, D = 128).
 
-Phase 18 runs after phase 15, phases 19 and 21 only under --dist-only:
+Phase 18 runs after phase 15, phases 19, 21 and 22 only under --dist-only:
 
  18. train   — qwen2.5-3b at full width and depth (bf16, seeded init)
                trained through launch.train's pieces: 5 steps of seq
@@ -249,7 +250,29 @@ Phase 18 runs after phase 15, phases 19 and 21 only under --dist-only:
                within 0.25 of the unsplit one-card prefill of the same
                weights (phase 9's rule; rank 0's card, broadcast).
                Prints the prefill seconds a rank, tokens/s and the peak a
-               rank beside nvidia-smi's name and power limit.
+               rank beside nvidia-smi's name and power limit;
+ 22. tp-decode — the split decode (each rank its rows, its block of the
+               KV cache's sequence over "model" with a softmax combined
+               across "model", its heads, ff columns and vocab rows, one
+               layer gathered over "data" at a time), bf16, seeded:
+               minicpm-2b at full width and depth on (1, 4), 8 rows x
+               32,768 slots (96.6 GB of cache, no card holds it), each
+               rank's block filled in place with the seeded values of the
+               whole cache to 32,760 slots, then 4 decode steps, each
+               timed: every rank's cache bytes equal cache_specs'
+               arithmetic (24.16 GB), the gathered logits equal on every
+               rank, rows 0 and 1 within 0.25 of rank 0's one-card
+               unsplit decode of those rows on their 24.2 GB whole cache;
+               qwen2.5-3b at full size on (2, 2) at the same size, its
+               rows against one card's decode of the whole batch; then
+               ServeEngine.generate of qwen2.5-3b on (1, 4), 4 x 32 + 16
+               tokens, the second call timed, its tokens equal to one
+               card's engine's or parting only where one card's top-two
+               logit gap is under 0.25. Prints ms a step (ms a token
+               served), the peak a rank and the cache bytes held beside
+               nvidia-smi's name and power limit. It launches no kernel of
+               the port: decode attends over its cache in plain torch, as
+               the reference does.
 
 Phase 20 runs after phase 18:
 
@@ -328,6 +351,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -3123,6 +3147,272 @@ def tp_prefill_phase(seed, on_card):
 
 
 # --------------------------------------------------------------------------
+# tp-decode: the split decode over "model" (phase 22, across ranks)
+# --------------------------------------------------------------------------
+
+DECODE_ARCH = "minicpm-2b"
+# (rows, cache slots, filled slots, decode steps): the card's run and the rehearsal's
+DECODE_RUN = dict(rows=8, slots=32768, at=32760, steps=4)
+DECODE_REHEARSAL = dict(rows=8, slots=64, at=56, steps=4)
+DECODE_CHECK_ROWS = 2         # minicpm's rows held against one card's whole cache
+
+
+def fill_cache(cache, seed, rows, lo, slots, at):
+    """Fills each layer's k and v of `cache` (rows `rows` of the whole
+    batch, slots [lo, lo + block) of a cache of `slots`) in place with the
+    seeded values of the whole cache, and sets every layer's length to
+    `at`: row b of layer l's k (v) is a [slots, Hkv, hd] normal tensor
+    seeded by (seed, l, k or v, b), zero from slot `at` on. A rank's block
+    and one card's whole cache so hold the same values where they meet."""
+    import torch
+    dev = cache["kv"][0]["k"].device
+    gen = torch.Generator(device=dev)
+    for layer, lc in enumerate(cache["kv"]):
+        for j, name in enumerate(("k", "v")):
+            block = lc[name]
+            for i, row in enumerate(range(rows.start, rows.stop)):
+                gen.manual_seed(seed + 1 + (2 * layer + j) * 4096 + row)
+                whole = torch.randn((slots,) + tuple(block.shape[2:]), generator=gen,
+                                    device=dev, dtype=block.dtype)
+                whole[at:] = 0
+                block[i].copy_(whole[lo:lo + block.shape[1]])
+                del whole
+        lc["length"] = at
+
+
+def cache_bytes(cache):
+    return sum(lc[n].numel() * lc[n].element_size() for lc in cache["kv"] for n in ("k", "v"))
+
+
+def specs_cache_bytes(cfg, rows, slots, layout):
+    """`cache_specs`' arithmetic: the bytes a rank of `layout` holds of a
+    cache of `rows` × `slots` (each leaf's over the ranks that split it)."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import build
+    whole = build(cfg, device="meta").init_cache(rows, slots)
+    shape = dict(layout.mesh.shape)
+    specs = sh.cache_specs(whole, layout.batch_axes, shape)
+    return sum(lc[n].numel() * lc[n].element_size()
+               // math.prod(sh._axis_size(e, shape) for e in spec[n])
+               for lc, spec in zip(whole["kv"], specs["kv"]) for n in ("k", "v"))
+
+
+def timed_decode(model, toks, cache, at, on_card):
+    """decode_step of each column of `toks` from position `at`, each timed
+    (host clock ending in a synchronize): the logits [steps, B, V] and the
+    seconds a step."""
+    import torch
+    out, secs = [], []
+    for i in range(toks.shape[1]):
+        sync(on_card)
+        t = time.perf_counter()
+        lg, cache = model.decode_step(toks[:, i:i + 1], cache, at + i)
+        sync(on_card)
+        secs.append(time.perf_counter() - t)
+        out.append(lg)
+    return torch.stack(out), secs
+
+
+def place_split(model, spec, dev, global_batch):
+    """Places a whole dense `model` on mesh `spec` by the sharding specs
+    (each rank keeps its blocks, the split plan installed); its layout."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import train as lt
+    from repro_torch.launch.mesh import effective_batch_axes
+    mesh = lt.make_mesh(spec, device=dev)
+    layout = sh.named(mesh, sh.param_specs(dict(model.net.named_parameters()), dict(mesh.shape)),
+                      effective_batch_axes(mesh, global_batch))
+    if sh.place_model(model, layout) != "split":
+        fail(f"tp-decode: {model.cfg.name} is not on the split plan")
+    return layout
+
+
+def split_decode_run(arch, spec, run, seed, on_card, dev, check_rows):
+    """One split decode of phase 22: `arch` (full size on the card, its
+    smoke config in the rehearsal; bf16, seeded) placed on mesh `spec`,
+    `run`'s rows × slots of cache filled by `fill_cache` to `at` slots,
+    then `steps` decode steps of seeded tokens, each rank its rows and its
+    block of the sequence. Rank 0 first decodes rows [0, check_rows) on
+    its card alone, unsplit, from the whole cache of those rows (the same
+    values) and broadcasts the logits. Checks: every rank's cache bytes
+    equal `cache_specs`' arithmetic; the logits finite, whole, equal on
+    every rank of a "model" group (and across the groups where the rows
+    are the same); the rows it shares with one card within LM_LOGIT_ATOL
+    of them. Returns rank 0's record."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    cfg = ARCHS[arch] if on_card else ARCHS[arch].smoke()
+    world, rank = tdist.get_world_size(), tdist.get_rank()
+    rows_all, slots, at, steps = run["rows"], run["slots"], run["at"], run["steps"]
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (rows_all, steps))).to(dev)
+    model = build(cfg, device=dev, seed=seed)
+    want = torch.empty((steps, check_rows, cfg.vocab_padded), dtype=torch.float32, device=dev)
+    one_card = {}
+    with torch.inference_mode():
+        if rank == 0:         # one card, unsplit, the whole cache of the checked rows
+            cache = model.init_cache(check_rows, slots)
+            fill_cache(cache, seed, range(check_rows), 0, slots, at)
+            one_card["cache_gb"] = cache_bytes(cache) / 1e9
+            lg, secs = timed_decode(model, toks[:check_rows], cache, at, on_card)
+            want.copy_(lg)
+            one_card["ms_per_step"] = [1e3 * x for x in secs]
+            del cache, lg
+        tdist.broadcast(want, src=0)
+    if on_card:
+        torch.cuda.empty_cache()
+    layout = place_split(model, spec, dev, rows_all)
+    plan = model.net.plan
+    rows = layout.rows(rows_all)
+    held_params = sum(p.numel() * p.element_size() for p in model.parameters())
+    with torch.inference_mode():
+        cache = model.init_cache(rows.stop - rows.start, slots)
+        lo, hi = plan.cache_slots(slots)
+        fill_cache(cache, seed, rows, lo, slots, at)
+        held = cache_bytes(cache)
+        sync(on_card)
+        before = torch.cuda.memory_allocated(dev) if on_card else 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        got, secs = timed_decode(model, toks[rows], cache, at, on_card)
+        peak = torch.cuda.max_memory_allocated(dev) if on_card else None
+        every = [torch.empty((steps, rows.stop - rows.start, cfg.vocab_padded),
+                             dtype=torch.float32, device=dev) for _ in range(world)]
+        tdist.all_gather(every, got.contiguous())
+    specs_bytes = specs_cache_bytes(cfg, rows_all, slots, layout)
+    shared = range(rows.start, min(rows.stop, check_rows))
+    err = float((got[:, :len(shared)] - want[:, shared.start:shared.stop]).abs().max()) \
+        if len(shared) else None
+    info = dict(model=cfg.name, layers=cfg.n_layers, mesh=spec, rows=rows_all, slots=slots,
+                filled=at, steps=steps, card=smi_line(on_card), slots_a_rank=[lo, hi],
+                rows_a_rank=[rows.start, rows.stop], own_kv_block=plan.own_kv,
+                heads_a_rank=plan.q[1] - plan.q[0], ms_per_step=[1e3 * x for x in secs],
+                cache_gb_a_rank=held / 1e9, specs_cache_gb_a_rank=specs_bytes / 1e9,
+                params_gb_a_rank=held_params / 1e9, peak_gb=peak / 1e9 if on_card else None,
+                peak_above_held_gb=(peak - before) / 1e9 if on_card else None,
+                one_card=one_card, vs_one_card_rows=check_rows, vs_one_card_max_abs=err,
+                logit_max_abs=float(want.abs().max()))
+    ranks = [None] * world
+    tdist.all_gather_object(ranks, dict(ms_per_step=info["ms_per_step"], peak_gb=info["peak_gb"],
+                                        err=err, rows=info["rows_a_rank"]))
+    info["by_rank"] = ranks
+    if tuple(got.shape) != (steps, rows.stop - rows.start, cfg.vocab_padded) \
+            or not bool(torch.isfinite(got).all()):
+        fail(f"tp-decode {cfg.name}: logits of shape {tuple(got.shape)} or non-finite values")
+    if held != specs_bytes:
+        fail(f"tp-decode {cfg.name}: rank {rank} holds {held} cache bytes, the specs say "
+             f"{specs_bytes}")
+    for other, theirs in zip(ranks, every):
+        if other["rows"] == info["rows_a_rank"] and not torch.equal(theirs, got):
+            fail(f"tp-decode {cfg.name}: rank {rank}'s logits differ from those of a rank "
+                 "with its rows")
+    if err is not None and not err <= LM_LOGIT_ATOL:
+        fail(f"tp-decode {cfg.name}: split vs one-card logits max abs diff {err} > "
+             f"{LM_LOGIT_ATOL}")
+    del model, plan, cache, got, every, want
+    if on_card:
+        torch.cuda.empty_cache()
+    return info
+
+
+def split_serve_run(arch, spec, seed, on_card, dev):
+    """Phase 22's serving: `arch` (bf16, seeded) placed on mesh `spec`,
+    `ServeEngine.generate` of 4 seeded prompts of 32 tokens and 16 new,
+    the second call timed, against one card's engine on the same weights
+    (rank 0, broadcast): the tokens equal, or where a row parts from one
+    card's, one card's top-two logit gap at that step under
+    LM_LOGIT_ATOL (a near-tie that two bf16 paths may break either way).
+    Returns rank 0's record."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    from repro_torch.serve import ServeEngine
+    cfg = ARCHS[arch] if on_card else ARCHS[arch].smoke()
+    rank = tdist.get_rank()
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab, (4, 32)).astype(np.int32)
+    new, max_len = 16, 64
+    steps = prompts.shape[1] + new - 1          # decode_step calls
+    model = build(cfg, device=dev, seed=seed)
+    want = torch.zeros((4, prompts.shape[1] + new), dtype=torch.int64, device=dev)
+    gaps = torch.zeros((4, steps), dtype=torch.float32, device=dev)
+    with torch.inference_mode():
+        if rank == 0:         # one card's tokens and its top-two gap at every step
+            want.copy_(torch.from_numpy(ServeEngine(model, max_len=max_len, batch_size=4)
+                                        .generate(prompts, new).tokens))
+            cache = model.init_cache(4, max_len)
+            for i in range(steps):
+                lg, cache = model.decode_step(want[:, i:i + 1], cache, i)
+                gaps[:, i] = top2_gap(lg)
+            del cache
+        tdist.broadcast(want, src=0)
+        tdist.broadcast(gaps, src=0)
+    rows = place_split(model, spec, dev, 4).rows(4)
+    engine = ServeEngine(model, max_len=max_len, batch_size=rows.stop - rows.start)
+    engine.generate(prompts[rows], new_tokens=2)           # warm-up
+    sync(on_card)
+    t = time.perf_counter()
+    got = engine.generate(prompts[rows], new)
+    sync(on_card)
+    serve_s = time.perf_counter() - t
+    mine, theirs = got.tokens, want[rows].cpu().numpy()
+    parted = []
+    for i, (a, b) in enumerate(zip(mine, theirs)):
+        apart = np.flatnonzero(a != b)
+        if len(apart):
+            j = int(apart[0])
+            parted.append(dict(row=rows.start + i, at=j,
+                               one_card_gap=float(gaps[rows.start + i, j - 1])))
+    info = dict(model=cfg.name, layers=cfg.n_layers, mesh=spec, prompts=list(prompts.shape),
+                new_tokens=new, max_len=max_len, card=smi_line(on_card), serve_s=serve_s,
+                decode_steps=steps, ms_per_token=1e3 * serve_s / steps,
+                tokens_equal=not parted, parted=parted)
+    every = [None] * tdist.get_world_size()
+    tdist.all_gather_object(every, dict(serve_s=serve_s, parted=parted))
+    info["by_rank"] = every
+    if mine.shape != theirs.shape or not np.array_equal(mine[:, :32], prompts[rows]):
+        fail(f"tp-decode serve: tokens of shape {mine.shape} or the prompts changed")
+    for p in parted:
+        if not p["one_card_gap"] < LM_LOGIT_ATOL:
+            fail(f"tp-decode serve: row {p['row']} parts from one card's tokens at {p['at']} "
+                 f"where one card's top-two gap is {p['one_card_gap']} (>= {LM_LOGIT_ATOL})")
+    del model, engine
+    if on_card:
+        torch.cuda.empty_cache()
+    return info
+
+
+def tp_decode_phase(seed, on_card):
+    """Phase 22, inside `process_group`: the split decode of the dense
+    family (each rank its rows, its block of the cache's sequence over
+    "model", its heads, ff columns and vocab rows, one layer gathered over
+    "data" at a time): minicpm-2b on (1, world) at DECODE_RUN's 8 rows x
+    32,768 slots, a cache one card cannot hold; qwen2.5-3b on (2, 2) at
+    the same size against one card at the whole batch (on (1, world)
+    unless the world is 4); qwen2.5-3b served on (1, world). Returns rank
+    0's records."""
+    import torch
+    import torch.distributed as tdist
+    world, rank = tdist.get_world_size(), tdist.get_rank()
+    dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))) if on_card else "cpu"
+    run = DECODE_RUN if on_card else DECODE_REHEARSAL
+    show = shower(rank)
+    out = {}
+    out["minicpm"] = split_decode_run(DECODE_ARCH, f"1,{world}", run, seed, on_card, dev,
+                                      DECODE_CHECK_ROWS)
+    show(out["minicpm"])
+    qwen_mesh = "2,2" if world == 4 else f"1,{world}"
+    out["qwen"] = split_decode_run(TRAIN_ARCH, qwen_mesh, run, seed, on_card, dev, run["rows"])
+    show(out["qwen"])
+    out["serve"] = split_serve_run(TRAIN_ARCH, f"1,{world}", seed, on_card, dev)
+    show(out["serve"])
+    tdist.barrier()
+    return out
+
+
+# --------------------------------------------------------------------------
 # offline: edge-list I/O, the analysis CLI, the census against the dry run
 # --------------------------------------------------------------------------
 
@@ -3292,8 +3582,9 @@ def dry_run_of(arch, full, layers, world, mesh, seq, global_batch, microbatches)
 
 
 def dist_only(args, on_card):
-    """Phases 16, 17, 19 and 21 alone (`--dist-only train`: phase 19
-    alone; `--dist-only tp`: phase 21 alone): every rank builds
+    """Phases 16, 17, 19, 21 and 22 alone (`--dist-only train`: phase 19
+    alone; `--dist-only tp`: phase 21 alone; `--dist-only decode`: phase
+    22 alone): every rank builds
     rmat(--scale) on its card (cuda:LOCAL_RANK under torchrun) and its
     cuda results, then runs the phases over all ranks in one process
     group. On the card rank 0 prints a {"kernels": [...]} line of
@@ -3340,6 +3631,14 @@ def dist_only(args, on_card):
             phase("tp-prefill", t0, f"ranks {ranks}: qwen2.5-3b prefill of {tp['seq']} tokens "
                   f"split over 'model' {tp['prefill_s']:.3f} s ({tp['tokens_per_s']:.0f} "
                   "tokens/s), == the one-card prefill")
+        if args.dist_only in ("all", "decode"):
+            t0 = time.perf_counter()
+            dec = tp_decode_phase(args.seed, on_card)
+            phase("tp-decode", t0, f"ranks {ranks}: minicpm-2b decode of "
+                  f"{dec['minicpm']['rows']} x {dec['minicpm']['slots']} slots split over "
+                  f"'model' {statistics.mean(dec['minicpm']['ms_per_step'][1:]):.1f} ms a step "
+                  f"(steps 2 on), qwen2.5-3b {statistics.mean(dec['qwen']['ms_per_step'][1:]):.1f},"
+                  f" served {dec['serve']['ms_per_token']:.1f} ms a token; == one card")
     if int(os.environ.get("RANK", 0)) == 0:
         if tp is not None and tp["flash"] is not None:
             print(json.dumps({"kernels": [tp["flash"]]}))
@@ -3354,10 +3653,11 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", action="store_true",
                     help="profile one more call of each cuda run (phase 7)")
-    ap.add_argument("--dist-only", nargs="?", const="all", choices=("all", "train", "tp"),
-                    help="the graph, its cuda results and phases 16, 17, 19 and 21 alone "
-                         "('train': phase 19 alone, 'tp': phase 21 alone; under torchrun: one "
-                         "rank a card); not a smoke run")
+    ap.add_argument("--dist-only", nargs="?", const="all",
+                    choices=("all", "train", "tp", "decode"),
+                    help="the graph, its cuda results and phases 16, 17, 19, 21 and 22 alone "
+                         "('train': phase 19 alone, 'tp': phase 21 alone, 'decode': phase 22 "
+                         "alone; under torchrun: one rank a card); not a smoke run")
     args = ap.parse_args(argv)
     on_card = args.device == "cuda"
 

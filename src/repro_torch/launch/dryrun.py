@@ -36,9 +36,13 @@ the layout gives the model (`Layout.plan_for`; the record's "plan"):
               (`impl="chunked"`): on the split plan its heads, ff columns
               and vocab block, each layer gathered over "data" as it runs;
               on the gathered plan the parameters gathered whole first;
-  * decode  — the gathered plan for every family (ROADMAP item 15b): the
-              parameters gathered whole, then one `decode_step` of this
-              rank's rows against `init_cache` of them.
+  * decode  — one `decode_step` of this rank's rows against
+              `init_cache` of them: on the split plan its heads, ff
+              columns and vocab block, each layer gathered over "data" as
+              it runs, and its block of the cache (the sequence over
+              "model", as `sharding.cache_specs` splits it); on the
+              gathered plan the parameters gathered whole first and the
+              whole sequence.
 
 On the split plan a rank holds one layer whole at most, and computes its
 share of the heads, ff columns and vocab; on the gathered plan every
@@ -194,16 +198,12 @@ def train_census(cfg, *, seq: int, global_batch: int, microbatches: int,
 
 def serve_census(cfg, cell: ShapeCell, mesh) -> dict:
     """The census of a prefill or one decode step of `cell` on meta, this
-    rank's rows: a prefill on the split plan runs the rank's blocks, every
-    other program gathers the parameters whole first."""
+    rank's rows: on the split plan the rank's blocks (of the cache too),
+    on the gathered plan the parameters gathered whole first."""
     model = build(cfg, device=META)
     params = dict(model.net.named_parameters())
     layout = _layout(params, mesh, cell.global_batch)
-    ran = layout.plan_for(cfg) if cell.kind == "prefill" else "gathered"
-    if ran == "split":
-        sh.place_model(model, layout)
-    else:
-        layout.shard_params(params)
+    ran = sh.place_model(model, layout)
     rows = cell.global_batch // layout.batch_shards
     held = sum(p.numel() * p.element_size() for p in params.values())
     if cell.kind == "prefill":
@@ -220,7 +220,8 @@ def serve_census(cfg, cell: ShapeCell, mesh) -> dict:
         tok = torch.empty((rows, 1), dtype=torch.int64, device=META)
 
         def program():
-            layout.gather_params(params)
+            if ran == "gathered":
+                layout.gather_params(params)
             return model.decode_step(tok, cache, cell.seq_len - 1)
         arguments = [list(params.values()), tok, cache]
     with torch.no_grad():

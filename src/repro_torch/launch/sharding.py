@@ -32,8 +32,11 @@ reference:
     its remat, so the recompute gathers again), and freed after it, and
     each gradient is reduce-scattered into the rank's block by the
     backward of that gather (`launch.parallel`). A leaf the guard replicated over "model"
-    is computed replicated.
-  * "gathered" (the other families, and decode): the step gathers every
+    is computed replicated. Decode runs it too: the rank holds its block
+    of the KV cache by `cache_specs` (its rows, and its block of the
+    sequence over "model"), and attention combines the ranks' blocks in
+    a softmax across "model" (`models.attention.split_attention_decode`).
+  * "gathered" (the other families): the step gathers every
     parameter whole over the axes that split it, runs this rank's rows,
     reduce-scatters each gradient into this rank's block (`reduce_grads`)
     and updates its blocks. Every rank of a "model" group then computes
@@ -52,8 +55,8 @@ import torch.distributed as tdist
 
 from ..core.dist import Mesh1D
 from ..models.weights import STACKED, leaf_groups
-from .parallel import (copy_to, gather_many, gather_over, reduce_from, reduce_scatter,
-                       vocab_cross_entropy, vocab_embed)
+from .parallel import (all_gather, all_reduce, copy_to, gather_many, gather_over,
+                       reduce_from, reduce_scatter, vocab_cross_entropy, vocab_embed)
 
 # param dims that shard over ('data' side, 'model' side)
 _IN_OUT = {"wq", "wk", "wv", "wz", "wi", "wf", "wo_gate", "in_proj",
@@ -462,7 +465,11 @@ class SplitPlan:
                       and the logits of its vocab block
                       (`vocab_cross_entropy`; `gather_vocab` for whole
                       logits);
-      norms           replicated.
+      norms           replicated;
+      KV cache        the rank's rows of the batch, and its slots
+                      [S·r/m, S·(r+1)/m) of a cache of S slots where m
+                      divides S, else all S (`cache_slots`: the rule of
+                      `cache_specs`, guard included).
 
     A replicated leaf used as a slice (bq to bv) passes `copy_to` first, so
     its slices' gradients add into the whole leaf over "model". A group
@@ -552,22 +559,29 @@ class SplitPlan:
         t = copy_to(t, self.model) if mdim is None else gather_over(t, self.model, mdim)
         return t.narrow(dim, lo, hi - lo)
 
-    def attention_weights(self, attn):
+    def attention_weights(self, attn, all_kv=False):
         """The rank's weights of an `Attention` block, in its attribute names
         (`models.attention.attention_block` takes the head counts from
-        them), with `split` (the output needs `leave`)."""
+        them), with `split` (the output needs `leave`). With `all_kv`
+        (decode writes every KV head of the new token): wk, wv, bk and bv
+        of every KV head, or of the rank's own block of them with
+        `kv_blocks` set, their products then gathered over "model"
+        (`gather_kv_heads`)."""
         cfg, hd = attn.cfg, attn.cfg.hd
         names = ["wq", "wk", "wv", "wo"] + (["bq", "bk", "bv"] if cfg.qkv_bias else [])
         if not self.heads:
             w = {n: self._take(getattr(attn, n)) for n in names}
         else:
             (lo, hi), (klo, khi) = self.q, self.kv
+            if all_kv and not self.own_kv:
+                klo, khi = 0, cfg.n_kv_heads
             q, kv = (lo * hd, hi * hd, self.own_q), (klo * hd, khi * hd, self.own_kv)
             cols = {"wq": (1, *q), "wk": (1, *kv), "wv": (1, *kv), "wo": (0, *q),
                     "bq": (0, lo * hd, hi * hd, False), "bk": (0, klo * hd, khi * hd, False),
                     "bv": (0, klo * hd, khi * hd, False)}
             w = {n: self._take(getattr(attn, n), *cols[n]) for n in names}
         return types.SimpleNamespace(cfg=cfg, split=self.heads,
+                                     kv_blocks=all_kv and self.heads and self.own_kv,
                                      q_norm=getattr(attn, "q_norm", None),
                                      k_norm=getattr(attn, "k_norm", None), **w)
 
@@ -578,6 +592,49 @@ class SplitPlan:
         lo, hi = self.f
         return (self._take(mlp.w_gate, 1, lo, hi, True), self._take(mlp.w_up, 1, lo, hi, True),
                 self._take(mlp.w_down, 0, lo, hi, True))
+
+    # -- the KV cache (decode) ---------------------------------------------------
+    def cache_slots(self, max_len: int) -> tuple:
+        """The slots [lo, hi) of a KV cache of `max_len` slots this rank
+        holds: its block of the sequence over "model" where `cache_specs`
+        splits it (m divides `max_len`), else all of them."""
+        cfg, m = self.cfg, self.model.size
+        spec = _cache_rule("k", (1, max_len, cfg.n_kv_heads, cfg.hd), None,
+                           dict(self.layout.mesh.shape))
+        if m == 1 or "model" not in _axes(spec[1]):
+            return 0, max_len
+        step = max_len // m
+        return self.model.rank * step, (self.model.rank + 1) * step
+
+    def gather_kv_heads(self, kv):
+        """Every KV head from the ranks' blocks (`attention_weights(...,
+        all_kv=True)`'s `kv_blocks`): [..., Hkv / m, hd] → [..., Hkv, hd]."""
+        return all_gather(kv, kv.ndim - 2, self.model)
+
+    def gather_heads(self, q):
+        """Every query head from the ranks' blocks, equal on every rank of
+        "model": [B, hi - lo, hd] → [B, H, hd]. Where m does not divide H
+        the blocks differ by one head: each is padded to ⌈H/m⌉ for the
+        all-gather and the pads dropped by the blocks' bounds."""
+        if not self.heads:
+            return q
+        h, m = self.cfg.n_heads, self.model.size
+        if h % m == 0:
+            return all_gather(q, 1, self.model)
+        width = -(-h // m)
+        padded = q.new_zeros((q.shape[0], width, q.shape[2]))
+        padded[:, :q.shape[1]] = q
+        every = all_gather(padded, 1, self.model)
+        return torch.cat([every[:, i * width:i * width + h * (i + 1) // m - h * i // m]
+                          for i in range(m)], dim=1)
+
+    def sum_over_model(self, t):
+        """`t` summed over "model" in place (no gradient); returns it."""
+        return all_reduce(t, self.model)
+
+    def max_over_model(self, t):
+        """`t`'s elementwise max over "model" in place (no gradient)."""
+        return all_reduce(t, self.model, tdist.ReduceOp.MAX)
 
     # -- activations -----------------------------------------------------------
     def enter(self, x, split: bool):

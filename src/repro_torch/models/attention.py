@@ -14,7 +14,9 @@ Under a split plan (`launch.sharding.SplitPlan`, installed by
 `Transformer.set_constraint_mesh`) a rank runs its own query heads and the
 KV heads they read: `attention_block` and `_project_qkv` take the head
 counts from the weights they get, so the same code runs a whole block and
-a rank's share of one.
+a rank's share of one. Its decode (`split_attention_decode`) holds the
+rank's block of the KV cache's sequence and combines the ranks' blocks in
+one softmax across "model".
 """
 from __future__ import annotations
 
@@ -184,6 +186,78 @@ def attention_decode(p: Attention, x, cache: dict, pos: int):
     o = o.transpose(1, 2).reshape(b, 1, cfg.n_heads * cfg.hd)
     cache["length"] = length + 1
     return o @ p.wo, cache
+
+
+def split_attention_decode(p: Attention, x, cache: dict, pos: int, plan):
+    """`attention_decode` of a rank under a split plan
+    (`launch.sharding.SplitPlan`), its block of the cache written in place.
+
+    cache: dict(k, v: [B, hi - lo, Hkv, D], the rank's slots [lo, hi) of
+    a cache of `max_len` slots (`plan.cache_slots`); length: the filled
+    slots of the whole cache, the same on every rank; max_len). The new
+    token's k and v, of every KV head, go to slot `length` on the rank
+    that holds it. Where the sequence is split, every rank scores all H
+    query heads (gathered over "model") against its slots and the ranks'
+    blocks meet in one softmax (`_softmax_over_slots`); where it is not,
+    every rank holds every slot and scores its own heads alone. The
+    output of its heads passes its rows of wo and `plan.leave`. Returns
+    (out [B, 1, d] whole, cache) with `length` advanced by one."""
+    cfg = p.cfg
+    b, hd = x.shape[0], cfg.hd
+    length, max_len = cache["length"], cache.get("max_len")
+    if max_len is None:
+        raise ValueError("a split decode needs the plan's cache (init_cache with the plan "
+                         "installed)")
+    lo, hi = plan.cache_slots(max_len)
+    if cache["k"].shape[1] != hi - lo or not 0 <= length < max_len:
+        raise ValueError(f"slot {length} of a {max_len}-slot cache whose block holds "
+                         f"{cache['k'].shape[1]} slots, not the plan's [{lo}, {hi})")
+    split = hi - lo < max_len
+    w = plan.attention_weights(p, all_kv=True)
+    positions = torch.full((b, 1), int(pos), dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _project_qkv(w, plan.enter(x, w.split), positions)
+    if w.kv_blocks:
+        k_new, v_new = plan.gather_kv_heads(torch.stack([k_new, v_new]))
+    if lo <= length < hi:
+        cache["k"][:, length - lo] = k_new[:, 0]
+        cache["v"][:, length - lo] = v_new[:, 0]
+    if split:
+        q, k, v = plan.gather_heads(q[:, 0]), cache["k"], cache["v"]
+    else:
+        klo, khi = plan.kv
+        q, k, v = q[:, 0], cache["k"][:, :, klo:khi], cache["v"][:, :, klo:khi]
+    nk = k.shape[2]
+    qg = q.float().reshape(b, nk, q.shape[1] // nk, hd)        # [B, Hkv, G, D]
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k.float()) * (1.0 / (hd ** 0.5))
+    valid = lo + torch.arange(k.shape[1], device=x.device) <= length
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    o = _softmax_over_slots(s, v, plan if split else None).reshape(b, -1, hd)
+    if split and w.split:
+        o = o[:, plan.q[0]:plan.q[1]]
+    cache["length"] = length + 1
+    return plan.leave(o.reshape(b, 1, -1) @ w.wo, w.split), cache
+
+
+def _softmax_over_slots(s, v, plan=None):
+    """Attention of f32 scores `s` [B, Hkv, G, T] over values `v` [B, T,
+    Hkv, D] in the reference's roundings (an f32 softmax, the
+    probabilities cast to v's dtype, their products with v summed in f32
+    and cast once): [B, Hkv, G, D] in v's dtype. With `plan` the T slots
+    are this rank's block of the cache: the row max, the sum of
+    exponentials and the f32 partial products are each all-reduced over
+    "model", so every rank gets the attention over every slot; a block
+    with no valid slot (all NEG_INF) adds zeros."""
+    top = s.amax(dim=-1, keepdim=True)
+    if plan is not None:
+        plan.max_over_model(top)
+    e = torch.exp(s - top)
+    total = e.sum(dim=-1, keepdim=True)
+    if plan is not None:
+        plan.sum_over_model(total)
+    o = torch.einsum("bkgt,btkd->bkgd", (e / total).to(v.dtype).float(), v.float())
+    if plan is not None:
+        plan.sum_over_model(o)
+    return o.to(v.dtype)
 
 
 def init_kv_cache(cfg, batch, max_len, dtype, device):

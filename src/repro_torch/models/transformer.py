@@ -26,14 +26,15 @@ its constraint pinning the logits vocab-split. The forward then runs the
 embedding, each layer and the logits through the plan (each layer's
 gathers inside its remat body, so the recompute gathers again) and returns
 the logits of the rank's vocab block, or with `last_only` the whole
-last-token logits gathered over "model".
+last-token logits gathered over "model". `init_cache` then allocates the
+rank's block of the KV cache, and `decode_step` runs the plan too.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from .attention import Attention, attention_decode, init_kv_cache
+from .attention import Attention, attention_decode, init_kv_cache, split_attention_decode
 from .layers import MLP, RMSNorm, dense_init, embed_init, remat_call
 from .moe import MoE
 from .ssm import (MLSTM, SLSTM, Mamba2, mamba2_decode, mamba2_init_state, mlstm_decode,
@@ -78,12 +79,19 @@ class DenseLayer(nn.Module):
         h, aux = self.ffn(self.ln2(x, cfg.norm_eps), cfg, plan)
         return x + h * scale, aux
 
-    def decode(self, x, lc, pos, cfg):
+    def decode(self, x, lc, pos, cfg, plan=None):
         """One token through the layer, its KV cache `lc` written in place.
-        As in the reference, the residual adds carry no `scale_depth`."""
-        h, _ = attention_decode(self.attn, self.ln1(x, cfg.norm_eps), lc, pos)
+        As in the reference, the residual adds carry no `scale_depth`.
+        With `plan`: the layer's weights gathered over "data" first, then
+        the rank's heads over its block of the cache
+        (`split_attention_decode`) and its ff columns."""
+        if plan is None:
+            h, _ = attention_decode(self.attn, self.ln1(x, cfg.norm_eps), lc, pos)
+        else:
+            plan = plan.gather_layer(self)
+            h, _ = split_attention_decode(self.attn, self.ln1(x, cfg.norm_eps), lc, pos, plan)
         x = x + h
-        h, _ = self.ffn(self.ln2(x, cfg.norm_eps), cfg)
+        h, _ = self.ffn(self.ln2(x, cfg.norm_eps), cfg, plan)
         return x + h
 
 
@@ -189,10 +197,16 @@ class Transformer(nn.Module):
         hybrid: {"ssm": one Mamba2 state per layer, "kv": one KV cache per
         shared-attention call site (at least one)};
         ssm: {"mlstm": one state per mLSTM layer, "slstm": one (c, n, m)
-        state per sLSTM layer}."""
+        state per sLSTM layer}. Under a split plan `batch` is the rank's
+        rows, and each layer's cache holds the rank's slots of `max_len`
+        (`SplitPlan.cache_slots`) and records `max_len`."""
         cfg, dev, dtype = self.cfg, self.embed.device, _dt(self.cfg)
 
         def kv(n):
+            if self.plan is not None:
+                lo, hi = self.plan.cache_slots(max_len)
+                return [dict(init_kv_cache(cfg, batch, hi - lo, dtype, dev), max_len=max_len)
+                        for _ in range(n)]
             return [init_kv_cache(cfg, batch, max_len, dtype, dev) for _ in range(n)]
 
         if cfg.family in ("dense", "moe"):
@@ -205,17 +219,17 @@ class Transformer(nn.Module):
 
     def decode_step(self, tokens, cache: dict, pos: int):
         """tokens: [B, 1]; pos: the position. Returns (logits [B, V] f32,
-        cache), the cache updated in place. Decode runs whole parameters:
-        under a split plan it raises."""
-        cfg = self.cfg
-        if self.plan is not None:
-            raise ValueError(f"{cfg.name}: decode runs the gathered plan; gather the "
-                             "parameters (Layout.gather_params) and remove the split plan "
-                             "(set_constraint_mesh(None)) first")
-        x = self.embed[tokens] * cfg.scale_emb
+        cache), the cache updated in place. Under a split plan (a dense
+        model) tokens are the rank's rows and the cache its block
+        (`init_cache` with the plan installed): the embedding, each layer
+        and the logits run through the plan, and the logits come back
+        whole, equal on every rank of "model"."""
+        cfg, plan = self.cfg, self.plan
+        x = (self.embed[tokens] if plan is None else plan.embed(self.embed, tokens)) \
+            * cfg.scale_emb
         if cfg.family in ("dense", "moe"):
             for layer, lc in zip(self.layers, cache["kv"]):
-                x = layer.decode(x, lc, pos, cfg)
+                x = layer.decode(x, lc, pos, cfg, plan)
         elif cfg.family == "hybrid":
             sites = _attn_sites(cfg)
             for i, layer in enumerate(self.layers):
@@ -231,4 +245,6 @@ class Transformer(nn.Module):
                 h, cache["slstm"][i] = slstm_decode(layer, cfg, x, cache["slstm"][i])
                 x = x + h
         x = self.ln_f(x, cfg.norm_eps)
+        if plan is not None:
+            return plan.gather_vocab(plan.logits(x, self))[:, 0], cache
         return (x[:, 0] @ self._w_out()).float(), cache

@@ -200,6 +200,28 @@ def test_split_plan_cuts_a_ranks_flops(monkeypatch):
     assert split["memory"]["temp_size_in_bytes"] < gathered["memory"]["temp_size_in_bytes"]
 
 
+def test_split_decode_cuts_a_ranks_bytes(monkeypatch):
+    """A dense smoke decode cell on a fake world of 8 ranks, mesh (2, 4):
+    on the split plan a rank holds its block of the cache's sequence and
+    computes with its blocks of the parameters, so its argument plus temp
+    bytes and its dot FLOPs fall below the gathered plan's (whole
+    parameters, whole sequence); each record names its plan."""
+    cfg = dataclasses.replace(configs.ARCHS["qwen2.5-3b"].smoke(), n_layers=2)
+    cell = configs.base.ShapeCell("decode_smoke", 256, 8, "decode")
+    with dryrun.fake_world(8):
+        mesh = lt.make_mesh("2,4", device="meta")
+        split = dryrun.serve_census(cfg, cell, mesh)
+        monkeypatch.setattr(sh.Layout, "_plan", "gathered")
+        gathered = dryrun.serve_census(cfg, cell, mesh)
+    assert split["plan"] == "split" and gathered["plan"] == "gathered"
+
+    def held(rec):
+        return rec["memory"]["argument_size_in_bytes"] + rec["memory"]["temp_size_in_bytes"]
+    assert held(split) < held(gathered)
+    assert 0 < split["flops"] < gathered["flops"]
+    assert split["held_bytes"] == gathered["held_bytes"]
+
+
 # --- roofline ------------------------------------------------------------------
 
 def test_roofline_terms_and_bottleneck():

@@ -20,6 +20,7 @@ import pickle
 import tempfile
 import time
 import traceback
+import types
 
 import numpy as np
 import torch
@@ -497,12 +498,70 @@ def run_split_steps(payload, mesh):
     return out
 
 
+def run_split_decode(payload, mesh):
+    """payload: [(case_id, arch, config overrides, reference arrays, mesh
+    spec, tokens [B, T], max_len, new_tokens)]. The arch's smoke config at
+    2 layers in f32 (with the overrides), holding the reference's weights
+    (`from_reference`), placed on the mesh (the split plan) with
+    `Layout.gather_params` made to raise, so no step gathers the
+    parameters whole. new_tokens None: `decode_step` of each of the T
+    tokens of the rank's rows from the plan's `init_cache(rows, max_len)`;
+    each rank returns its logits a step [T, rows, V], its cache blocks
+    (k, v a layer), their length and bytes, its slots and rows, the plan's
+    name and the layout's batch axes. Else `ServeEngine(max_len=max_len)
+    .generate` of the rank's rows of the prompts `tokens` and
+    `new_tokens` more; each rank returns its tokens and rows."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import train as lt
+    from repro_torch.launch.mesh import effective_batch_axes
+    from repro_torch.models.weights import from_reference
+    from repro_torch.serve import ServeEngine
+
+    def refuse(self, params):
+        raise AssertionError("a split decode gathered the parameters whole")
+    out = {}
+    for cid, arch, overrides, arrays, spec, tokens, max_len, new_tokens in payload:
+        cfg = dataclasses.replace(ARCHS[arch].smoke(), n_layers=2, dtype="float32",
+                                  **overrides)
+        m = lt.make_mesh(spec, device="cpu")
+        model = from_reference(arrays, cfg, device="cpu")
+        gb = tokens.shape[0]
+        lay = sh.named(m, sh.param_specs(dict(model.net.named_parameters()), dict(m.shape)),
+                       effective_batch_axes(m, gb))
+        lay.gather_params = types.MethodType(refuse, lay)
+        ran = sh.place_model(model, lay)
+        rows = lay.rows(gb)
+        res = dict(ran=ran, rows=[rows.start, rows.stop], batch_axes=lay.batch_axes)
+        with torch.inference_mode():
+            if new_tokens is not None:
+                got = ServeEngine(model, max_len=max_len, batch_size=rows.stop - rows.start) \
+                    .generate(tokens[rows], new_tokens)
+                out[cid] = dict(res, tokens=got.tokens)
+                continue
+            toks = torch.from_numpy(tokens[rows]).long()
+            cache = model.init_cache(rows.stop - rows.start, max_len)
+            logits = []
+            for i in range(toks.shape[1]):
+                lg, cache = model.decode_step(toks[:, i:i + 1], cache, i)
+                logits.append(host(lg))
+        kv = cache["kv"]
+        out[cid] = dict(res, logits=np.stack(logits), slots=model.net.plan.cache_slots(max_len),
+                        cache=[(host(lc["k"]), host(lc["v"])) for lc in kv],
+                        length={lc["length"] for lc in kv},
+                        cache_bytes=sum(lc[n].numel() * lc[n].element_size()
+                                        for lc in kv for n in ("k", "v")))
+    return out
+
+
 def run_cases(payload: dict, mesh) -> dict:
     """Each section of the payload ("programs", "exchanges", "gathers",
     "grid", "pods", "tune", "train", "reduce", "moments", "split_functions",
-    "split_steps"), in that order on every rank."""
+    "split_steps", "split_decode"), in that order on every rank."""
     jobs = {"programs": run_programs, "exchanges": run_exchanges, "gathers": run_gathers,
             "grid": run_grid, "pods": run_pods, "tune": run_tune, "train": run_train,
             "reduce": run_reduce, "moments": run_moments,
-            "split_functions": run_split_functions, "split_steps": run_split_steps}
+            "split_functions": run_split_functions, "split_steps": run_split_steps,
+            "split_decode": run_split_decode}
     return {k: jobs[k](payload[k], mesh) for k in jobs if k in payload}
