@@ -4,10 +4,11 @@
     python3 chip_smoke.py                          # the smoke run: one card, RMAT scale 22
     python3 chip_smoke.py --trace                  # ... and where each run's time goes
     python3 chip_smoke.py --scale 10 --device cpu  # rehearsal of the plain versions
-    torchrun --nproc-per-node 4 chip_smoke.py --dist-only   # phases 16, 17, 19, 21, 22 on 4 cards
+    torchrun --nproc-per-node 4 chip_smoke.py --dist-only   # phases 16, 17, 19, 21-23 on 4 cards
     torchrun --nproc-per-node 4 chip_smoke.py --dist-only train   # phase 19 alone
     torchrun --nproc-per-node 4 chip_smoke.py --dist-only tp      # phase 21 alone
     torchrun --nproc-per-node 4 chip_smoke.py --dist-only decode  # phase 22 alone
+    torchrun --nproc-per-node 4 chip_smoke.py --dist-only moe     # phase 23 alone
 
 Phases, each printed with its own seconds; any failure exits non-zero:
 
@@ -186,16 +187,18 @@ graph:
                digest), the winner's dist equal to `cuda`'s.
 
 `--dist-only` runs the graph, its `cuda` baselines and phases 16, 17, 19,
-21 and 22 alone (`--dist-only train`: phase 19 alone, `--dist-only tp`:
-phase 21 alone, `--dist-only decode`: phase 22 alone); under `torchrun
+21, 22 and 23 alone (`--dist-only train`: phase 19 alone, `--dist-only
+tp`: phase 21 alone, `--dist-only decode`: phase 22 alone, `--dist-only
+moe`: phase 23 alone; phase 23 needs 4 ranks); under `torchrun
 --nproc-per-node 4 chip_smoke.py --dist-only` (one card a rank, NCCL)
 phase 17 takes the grids (2, 2), (1, 4) and (4, 1) and the pods (2, 2)
 and (4, 1), a pod count above 1 holding `_gather_elems` to the sum of
 each pod's slice run alone; only rank 0 prints. On the card rank 0 ends
-with a {"kernels": [...]} line of flash_attention.bf16 with phase 21's
-launches, timed at its shape (BH = 4, S = 32,768, D = 128).
+with a {"kernels": [...]} line of flash_attention.bf16 with the launches
+of phases 21 and 23, timed at their shape (BH = 4, S = 32,768, D = 128).
 
-Phase 18 runs after phase 15, phases 19, 21 and 22 only under --dist-only:
+Phase 18 runs after phase 15, phases 19, 21, 22 and 23 only under
+--dist-only:
 
  18. train   — qwen2.5-3b at full width and depth (bf16, seeded init)
                trained through launch.train's pieces: 5 steps of seq
@@ -272,7 +275,36 @@ Phase 18 runs after phase 15, phases 19, 21 and 22 only under --dist-only:
                served), the peak a rank and the cache bytes held beside
                nvidia-smi's name and power limit. It launches no kernel of
                the port: decode attends over its cache in plain torch, as
-               the reference does.
+               the reference does;
+ 23. tp-moe  — the MoE family on the split plan (each rank its E/m
+               experts and its block of the shared experts' columns over
+               "model", routing replicated over "model", its heads and
+               vocab rows, one layer gathered over "data" at a time),
+               seeded, 4 ranks: deepseek-moe-16b at full width and 4
+               layers, 3 steps of 8 x 2,048 tokens in 2 microbatches on
+               (2, 2) and on (1, 4), the specs' bytes held, losses
+               against rank 0's one-card run of the same global batch
+               (in 4 and 2 microbatches: each routes one "data" rank's
+               rows, ROADMAP §3): in f32 every step at TRAIN_LOSS_RTOL,
+               in bf16 the first at ONE_RANK_ATOL, the gathered plan's
+               bf16 run printed beside them; deepseek-moe-16b at full
+               size on (1, 4): a 32,768-token prefill (flash on each
+               rank's 4 heads, 28 launches a rank, the first call of
+               each shape held against attention_ref in blocks) and 4
+               decode steps over 8 rows x 32,768 slots filled to 32,760
+               (15.0 GB of cache a rank, `cache_specs`' bytes), the
+               prefill and rows 0 and 1 against one card's unsplit run:
+               in bf16 printed with every routing choice that parts from
+               one card's (those of a first layer must be near-ties,
+               ROUTE_TIE), then with the weights upcast to f32 (2,048
+               prompt tokens, 4,096 slots) held at F32_LOGIT_ATOL; then
+               3 train steps in 2 microbatches (the rows reckoned to fit
+               the card: `reckoned_train_peak`), the specs' bytes held,
+               peak and s a step printed; qwen3-moe-235b-a22b at full
+               width and 4 layers on (1, 4), 32 experts a rank, the same
+               prefill and decode (all 8 rows) against one card. Prints
+               beside nvidia-smi's name and power limit; runs every
+               part and then fails if any check did.
 
 Phase 20 runs after phase 18:
 
@@ -2919,7 +2951,7 @@ def train_dist_phase(seed, on_card, trace=False):
         run of the same cell on a fake world (rank 0)."""
         mesh = lt.make_mesh(spec, device=dev)
         model = build(cfg, device=dev, seed=seed)
-        state = lt.shard(init_state(model), mesh, gb)
+        state = lt.init_sharded(model, mesh, gb)
         step_fn = make_train_step(model, oc, microbatches=mb, impl="ref")
         census = Census()
         with census:
@@ -3413,6 +3445,544 @@ def tp_decode_phase(seed, on_card):
 
 
 # --------------------------------------------------------------------------
+# tp-moe: the MoE family on the split plan (phase 23, across ranks)
+# --------------------------------------------------------------------------
+
+MOE_ARCH = "deepseek-moe-16b"
+MOE_WIDE_ARCH = "qwen3-moe-235b-a22b"
+MOE_LAYERS = 4                # the meshes against one card, and qwen3-moe: full width, 4 layers
+# (seq, global batch, microbatches, steps, lr) of the 4-layer runs: the card's and the rehearsal's
+MOE_RUN = dict(seq=2048, global_batch=8, microbatches=2, steps=3, lr=1e-3)
+MOE_REHEARSAL = dict(MOE_RUN, seq=64)
+# deepseek-moe-16b at full size on (1, 4): its rows are the most of MOE_FULL_ROWS
+# whose reckoned peak (`reckoned_train_peak`) stays under MOE_FULL_SHARE of the card
+MOE_FULL_ROWS = (4, 2)
+MOE_FULL_SHARE = 0.9
+MOE_PREFILL = 32768           # the split prefill's tokens (256 in the rehearsal)
+# The 4-layer runs of each mesh against one card: (dtype, plan). An MoE
+# loss in bf16 is sensitive: a near-tie routed otherwise changes that
+# token's output, and through the capacity the slots, and so the drops, of
+# later tokens of both experts (read on the card, PERF.md "Findings": at
+# the initial weights (2, 2) lay 1.3e-3 from one card on step 1's batch
+# and 2.8e-2 on step 2's; 1.2e-2 at capacity factor 16, where nothing
+# drops; the gathered plan, one card's arithmetic on whole weights,
+# 2.6e-4; f32 at most 5.1e-5 relative). So the f32 run is held at every step
+# (TRAIN_LOSS_RTOL), the bf16 split run at step 1 (ONE_RANK_ATOL), and the
+# gathered plan's bf16 run on (2, 2) printed beside it
+MOE_MESH_RUNS = (("float32", None), ("bfloat16", None), ("bfloat16", "gathered"))
+# routing is bf16-sensitive: a (token, choice) of a first layer that the
+# split run gives another expert than one card must be a near-tie there,
+# one card's k-th and (k+1)-th probabilities within this (on the card: a
+# smoke config's 8 experts lie so near uniform, about 0.125 each, that
+# the rehearsal only prints its flips). Past the first layer a flip feeds
+# another expert's output into the token and, through attention, into
+# later tokens: read on the card (PERF.md, "Findings"), deepseek's first
+# flips at layer 0 lay within 5.4e-4, later ones up to 1.7e-2, 29% of all
+# pairs parted
+ROUTE_TIE = 1e-2
+# the f32 pair of the split serving checks: prompt tokens (plain
+# attention), cache slots, filled slots; the card's and the rehearsal's
+F32_RUN = dict(tokens=2048, slots=4096, at=4088)
+F32_REHEARSAL = dict(tokens=64, slots=64, at=56)
+
+
+@contextlib.contextmanager
+def routing_recorded(calls, probs_too=False):
+    """Inside, every MoE routing (`models.moe.route`) appends to `calls`
+    (its tokens' chosen experts [T, k], each row sorted; with `probs_too`
+    its k-th and (k+1)-th largest probabilities [T, 2], else None)."""
+    import torch
+    from repro_torch.models import moe
+    route = moe.route
+
+    def recorded(p, cfg, xt):
+        probs, gate_vals, gate_idx = route(p, cfg, xt)
+        k = cfg.moe_top_k
+        top = torch.topk(probs, k + 1, dim=-1).values[:, k - 1:] if probs_too else None
+        calls.append((gate_idx.sort(dim=-1).values, top))
+        return probs, gate_vals, gate_idx
+    moe.route = recorded
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def routing_flips(got, want, layers):
+    """Against one card's routing calls `want`, the split run's `got` (the
+    same calls, in order, a layer at a time, step by step for a decode; its
+    first tokens the ones one card routed, a token the same position, or
+    row, in every call): the (token, choice) pairs whose expert is not
+    among one card's k for that token, split into those at the token's
+    first such call (`first`) and after it (`after`: the token's state has
+    already taken another expert's output); one card's largest k-th to
+    (k+1)-th probability gap at a token's first such call (`worst_gap`),
+    and at a first layer's call (`layer0_worst_gap`); and each call's
+    first pairs and gap."""
+    if len(got) != len(want):
+        fail(f"tp-moe: {len(got)} routing calls against one card's {len(want)}")
+    first = after = 0
+    worst, worst0, parted, by_call = 0.0, 0.0, None, []
+    for i, ((g, _), (w, top)) in enumerate(zip(got, want)):
+        g = g[:w.shape[0]].to(w.device)
+        missing = (g[:, :, None] != w[:, None, :]).all(dim=-1).sum(dim=-1)      # [T]
+        if parted is None:
+            parted = missing.new_zeros(missing.shape, dtype=bool)
+        new = (missing > 0) & ~parted
+        first += int(missing[new].sum())
+        after += int(missing[parted].sum())
+        gap = float((top[:, 0] - top[:, 1])[new].max()) if bool(new.any()) else 0.0
+        worst = max(worst, gap)
+        if i % layers == 0:
+            worst0 = max(worst0, gap)
+        by_call.append((int(missing[new].sum()), gap))
+        parted |= missing > 0
+    return dict(first=first, after=after, worst_gap=worst, layer0_worst_gap=worst0,
+                first_by_call=by_call)
+
+
+def reckoned_train_peak(cfg, world, rows, seq):
+    """The bytes a rank of (1, world) holds at the peak of a train step of
+    `rows` × `seq` tokens in 2 microbatches, reckoned from the shapes: its
+    blocks in bf16 and their m and v (the specs' arithmetic), an f32 and a
+    bf16 gradient block (the step's sum and one microbatch's), and a
+    microbatch's activations, taken at 512 KiB a token (under remat a
+    layer's bf16 input, 4 KiB at d 2,048, for each of 28 layers; the f32
+    logits of the rank's vocab block and their gradient, 200 KiB; one
+    layer's recompute)."""
+    from repro_torch.models import build
+    params = sum(p.numel() for p in build(cfg, device="meta").parameters())
+    return params // world * (2 + 8 + 4 + 2) + rows // 2 * seq * 512 * 1024
+
+
+def moe_one_card_losses(cfg, knobs, microbatches, seed, dev, on_card):
+    """The losses of `cfg`'s first steps on rank 0's card alone (the whole
+    global batch in `microbatches` microbatches), on every rank."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.launch import train as lt
+    from repro_torch.models import build
+    from repro_torch.train import init_state, make_train_step
+    losses = [None]
+    if tdist.get_rank() == 0:
+        model = build(cfg, device=dev, seed=seed)
+        state = init_state(model)
+        oc = lt.optimizer_config(cfg, knobs["steps"], knobs["lr"])
+        dc = lt.data_config(cfg, knobs["seq"], knobs["global_batch"])
+        step = make_train_step(model, oc, microbatches=microbatches, impl="ref")
+        losses = [[float(step(state, lt.batch_for(cfg, dc, i, dev))[1]["loss"])
+                   for i in range(knobs["steps"])]]
+        del model, state, step
+        if on_card:
+            torch.cuda.empty_cache()
+    tdist.broadcast_object_list(losses, src=0)
+    return losses[0]
+
+
+def moe_train_steps(model, state, cfg, knobs, dev, on_card):
+    """`knobs["steps"]` steps of the placed `state` (launch.train's data
+    and schedule, impl="ref"): losses, seconds a step, held bytes, peak."""
+    import torch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import train as lt
+    from repro_torch.train import make_train_step
+    gb = knobs["global_batch"]
+    oc = lt.optimizer_config(cfg, knobs["steps"], knobs["lr"])
+    dc = lt.data_config(cfg, knobs["seq"], gb)
+    step = make_train_step(model, oc, microbatches=knobs["microbatches"], impl="ref")
+    rows = state.layout.rows(gb)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, secs = [], []
+    for i in range(knobs["steps"]):
+        t = time.perf_counter()
+        state, metrics = step(state, lt.batch_for(cfg, dc, i, dev, rows))
+        losses.append(float(metrics["loss"]))
+        secs.append(time.perf_counter() - t)
+    return dict(losses=losses, step_s=secs, held_bytes=sh.held_bytes(state),
+                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None,
+                rows=[rows.start, rows.stop])
+
+
+def spec_bytes(whole, layout):
+    """The specs' arithmetic: the bytes of params, m and v (f32) a rank of
+    `layout` holds, from each parameter's whole (numel, element size)."""
+    from repro_torch.launch import sharding as sh
+    shape = dict(layout.mesh.shape)
+    return sum(n // math.prod(sh._axis_size(e, shape) for e in layout.specs[name]) * (size + 8)
+               for name, (n, size) in whole.items())
+
+
+def moe_mesh_run(cfg, spec, knobs, seed, on_card, dev, plan=None):
+    """`cfg` (seeded) trained on mesh `spec`, its state placed as
+    `launch.train.init_sharded` places it (`plan` "gathered": on the
+    gathered plan)."""
+    import torch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import train as lt
+    from repro_torch.launch.mesh import effective_batch_axes
+    from repro_torch.models import build
+    from repro_torch.train import init_state
+    mesh = lt.make_mesh(spec, device=dev)
+    model = build(cfg, device=dev, seed=seed)
+    params = dict(model.net.named_parameters())
+    whole = {n: (p.numel(), p.element_size()) for n, p in params.items()}
+    layout = sh.named(mesh, sh.param_specs(params, dict(mesh.shape)),
+                      effective_batch_axes(mesh, knobs["global_batch"]))
+    layout._plan = plan
+    sh.place_model(model, layout)
+    state = init_state(model)
+    state.layout = layout
+    split = model.net.plan
+    out = moe_train_steps(model, state, cfg, knobs, dev, on_card)
+    out.update(mesh=spec, plan=layout.plan_for(cfg), spec_bytes=spec_bytes(whole, layout),
+               experts_a_rank=split.e[1] - split.e[0] if split else None)
+    del model, state, split
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def upcast(model):
+    """Inside, `model`'s parameters in f32 and its config's dtype f32 (so
+    its caches are too); after, each parameter back in its own dtype,
+    exactly, since each f32 value came from it. Outside inference mode:
+    the parameters stay trainable."""
+    import dataclasses
+    import torch
+    params = list(model.net.parameters())
+    dtypes = [p.dtype for p in params]
+    cfg = model.cfg
+    with torch.no_grad():
+        for p in params:
+            p.data = p.data.float()
+    model.cfg = model.net.cfg = dataclasses.replace(cfg, dtype="float32")
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for p, dt in zip(params, dtypes):
+                p.data = p.data.to(dt)
+        model.cfg = model.net.cfg = cfg
+
+
+def moe_refs(model, prompt, toks, seed, run, on_card, f32):
+    """One card's (or, on a placed model, the split's) prefill last-token
+    logits of `prompt` and decode logits [steps, rows, V] of `toks`' rows
+    over `run`'s cache (the rows' and, placed, the rank's slots of it,
+    filled by `fill_cache`), with their routing calls recorded
+    (probabilities too), the prefill through flash (`impl="kernel"`) and
+    timed, or with `f32` through the plain attention (`impl="ref"`).
+    Returns (prefill logits, decode logits, prefill routes, decode routes,
+    prefill s, ms a decode step, cache bytes)."""
+    import torch
+    slots, at = run["slots"], run["at"]
+    plan = model.net.plan
+    lo = plan.cache_slots(slots)[0] if plan is not None else 0
+    pre_routes, dec_routes = [], []
+    with torch.inference_mode():
+        with routing_recorded(pre_routes, probs_too=True):
+            sync(on_card)
+            t = time.perf_counter()
+            pre, _ = model({"tokens": prompt}, impl="ref" if f32 else "kernel", last_only=True)
+            sync(on_card)
+            prefill_s = time.perf_counter() - t
+        cache = model.init_cache(toks.shape[0], slots)
+        fill_cache(cache, seed, range(run["rows_lo"], run["rows_lo"] + toks.shape[0]), lo,
+                   slots, at)
+        held = cache_bytes(cache)
+        with routing_recorded(dec_routes, probs_too=True):
+            dec, secs = timed_decode(model, toks, cache, at, on_card)
+        del cache
+    return pre, dec, pre_routes, dec_routes, prefill_s, [1e3 * x for x in secs], held
+
+
+def moe_serve_run(label, cfg, spec, run, seq, seed, on_card, dev, check_rows, chunk, problems):
+    """The split prefill and decode of `cfg` (bf16, seeded) on mesh
+    `spec`, each against one card, in bf16 and with the same weights
+    upcast to f32. Every rank builds the whole model; rank 0 first runs
+    one card's prefill of one seeded prompt of `seq` tokens (flash) and
+    its decode of rows [0, check_rows) of `run`'s cache, then both again
+    upcast to f32 (the prompt's first F32_RUN["tokens"], F32_RUN's cache,
+    plain attention), recording the routing and broadcasting the logits.
+    Then the model is placed (each rank keeps its blocks: E/m experts)
+    and runs the same: a held warm-up prefill (flash calls against
+    attention_ref), the timed prefill counting flash launches, the decode
+    (each rank its rows and its block of the cache), and the f32 pair.
+    Held: the logits finite, equal on the ranks of a "model" group; the f32
+    logits within F32_LOGIT_ATOL of one card's; every routing flip of a
+    first layer against one card a near-tie (ROUTE_TIE: the input of layer
+    0's routing differs from one card's by attention's bf16 roundings
+    alone); every rank's cache bytes `cache_specs`' arithmetic. Printed:
+    the bf16 logits' distance from one card's and every flip (a
+    random-weight MoE turns bf16's last bits into other experts layer
+    after layer: phase 15 reads deepseek's bf16 plain logits 5.24 from
+    its f32 ones, BF16_HELD_FAMILIES). A check that fails is added to `problems`. Rank 0
+    prints its record (`label`). Returns (rank 0's record, the placed
+    model, its layout, each parameter's whole (numel, element size))."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.models import build
+    world, rank = tdist.get_world_size(), tdist.get_rank()
+    rows_all, steps = run["rows"], run["steps"]
+    f32_run = dict(F32_RUN if on_card else F32_REHEARSAL, rows=rows_all, steps=steps)
+    model = build(cfg, device=dev, seed=seed)
+    whole = {n: (p.numel(), p.element_size()) for n, p in model.net.named_parameters()}
+    prompt = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (1, seq))).to(dev)
+    prompt32 = prompt[:, :f32_run["tokens"]]
+    toks = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab, (rows_all, steps))).to(dev)
+    v = cfg.vocab_padded
+    want = {k: torch.empty(shape, dtype=torch.float32, device=dev) for k, shape in
+            (("pre", (1, 1, v)), ("dec", (steps, check_rows, v)), ("pre32", (1, 1, v)),
+             ("dec32", (steps, check_rows, v)))}
+    one_card, one_routes = {}, {}
+    if rank == 0:         # one card, unsplit: bf16, then the same weights in f32
+        mine = dict(run, rows_lo=0)
+        want["pre"], want["dec"], *routes, one_card["prefill_s"], one_card["ms_per_step"], _ = \
+            moe_refs(model, prompt, toks[:check_rows], seed, mine, on_card, False)
+        one_routes["bf16"] = routes
+        with upcast(model):
+            want["pre32"], want["dec32"], *routes, _, _, _ = moe_refs(
+                model, prompt32, toks[:check_rows], seed, dict(f32_run, rows_lo=0), on_card, True)
+        one_routes["f32"] = routes
+        one_card["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None
+    for t in want.values():
+        tdist.broadcast(t, src=0)
+    if on_card:
+        torch.cuda.empty_cache()
+    layout = place_split(model, spec, dev, rows_all)
+    plan = model.net.plan
+    held_params = sum(p.numel() * p.element_size() for p in model.parameters())
+    rows = layout.rows(rows_all)
+    if on_card:
+        torch.cuda.empty_cache()
+    held_rows = []
+    with torch.inference_mode():
+        with each_flash_call_held(held_rows, chunk, first_of_each_shape=True):
+            model({"tokens": prompt}, impl="kernel", last_only=True)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    flash_attention.launches = 0
+    mine = dict(run, rows_lo=rows.start)
+    got = {}
+    got["pre"], got["dec"], *routes, prefill_s, ms, held_cache = moe_refs(
+        model, prompt, toks[rows], seed, mine, on_card, False)
+    launches = flash_attention.launches
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None
+    split_routes = {"bf16": routes}
+    with upcast(model):
+        got["pre32"], got["dec32"], *routes, _, _, _ = moe_refs(
+            model, prompt32, toks[rows], seed, dict(f32_run, rows_lo=rows.start), on_card, True)
+    split_routes["f32"] = routes
+    held_calls_agree(cfg, "tp-moe", held_rows)
+    firsts = {k: got[k].clone() for k in ("pre", "pre32")}
+    for t in firsts.values():
+        tdist.broadcast(t, src=0)
+    every = [torch.empty_like(got["dec"]) for _ in range(world)]
+    tdist.all_gather(every, got["dec"].contiguous())
+    specs_cache = specs_cache_bytes(cfg, rows_all, run["slots"], layout)
+    shared = range(rows.start, min(rows.stop, check_rows))
+    err = {}
+    for k in want:
+        if k.startswith("pre"):
+            err[k] = float((got[k] - want[k]).abs().max())
+        elif len(shared):
+            err[k] = float((got[k][:, :len(shared)] - want[k][:, shared.start:shared.stop])
+                           .abs().max())
+    flips = {}
+    if rank == 0:         # on (1, world) rank 0's rows start at one card's
+        for dt in ("bf16", "f32"):
+            for i, what in enumerate(("prefill", "decode")):
+                flips[f"{what} {dt}"] = routing_flips(split_routes[dt][i], one_routes[dt][i],
+                                                      cfg.n_layers)
+    info = dict(model=cfg.name, layers=cfg.n_layers, mesh=spec, card=smi_line(on_card),
+                experts_a_rank=plan.e[1] - plan.e[0], heads_a_rank=plan.q[1] - plan.q[0],
+                shared_cols_a_rank=plan.sf[1] - plan.sf[0], params_gb_a_rank=held_params / 1e9,
+                prefill_tokens=seq, prefill_s=prefill_s, tokens_per_s=seq / prefill_s,
+                flash_launches=launches, flash_calls_held=held_rows, decode_rows=rows_all,
+                slots=run["slots"], filled=run["at"], decode_ms_per_step=ms,
+                cache_gb_a_rank=held_cache / 1e9, specs_cache_gb_a_rank=specs_cache / 1e9,
+                peak_gb=peak, vs_one_card_rows=check_rows,
+                vs_one_card_max_abs={k: err.get(k) for k in want}, f32_run=f32_run,
+                routing_flips=flips, one_card=one_card,
+                logit_max_abs=float(want["pre"].abs().max()))
+    ranks = [None] * world
+    tdist.all_gather_object(ranks, dict(prefill_s=prefill_s, ms=ms, peak_gb=peak,
+                                        rows=[rows.start, rows.stop]))
+    info["by_rank"] = ranks
+    shower(rank)(dict(tp_moe=label, **info))
+    for k in ("pre", "dec", "pre32", "dec32"):
+        if not bool(torch.isfinite(got[k]).all()):
+            problems.append(f"tp-moe {cfg.name} {k}: non-finite logits")
+    for k, t in firsts.items():
+        if not torch.equal(got[k], t):
+            problems.append(f"tp-moe {cfg.name}: rank {rank}'s {k} logits differ from rank 0's")
+    for other, theirs in zip(ranks, every):
+        if other["rows"] == [rows.start, rows.stop] and not torch.equal(theirs, got["dec"]):
+            problems.append(f"tp-moe {cfg.name}: rank {rank}'s decode logits differ from a rank "
+                            "with its rows")
+    for k in ("pre32", "dec32"):
+        if k in err and not err[k] <= F32_LOGIT_ATOL:
+            problems.append(f"tp-moe {cfg.name}: split vs one-card {k} logits max abs diff "
+                            f"{err[k]} > {F32_LOGIT_ATOL}")
+    if held_cache != specs_cache:
+        problems.append(f"tp-moe {cfg.name}: rank {rank} holds {held_cache} cache bytes, the "
+                        f"specs say {specs_cache}")
+    for what, f in flips.items():     # the rehearsal's 8 smoke experts lie near-uniform: printed
+        if on_card and not f["layer0_worst_gap"] <= ROUTE_TIE:
+            problems.append(f"tp-moe {cfg.name} {what}: a first-layer routing choice parts from "
+                            f"one card's at a gap of {f['layer0_worst_gap']} (> {ROUTE_TIE})")
+    if not plan.experts or plan.e[1] - plan.e[0] != cfg.n_experts // plan.model.size:
+        problems.append(f"tp-moe {cfg.name}: the plan holds experts {plan.e}, not E/m of "
+                        f"{cfg.n_experts}")
+    if on_card and launches != cfg.n_layers:
+        problems.append(f"tp-moe {cfg.name}: {launches} flash launches in the prefill, want "
+                        f"{cfg.n_layers}")
+    del got, want, firsts, every, one_routes, split_routes
+    if on_card:
+        torch.cuda.empty_cache()
+    return info, model, layout, whole
+
+
+def tp_moe_phase(seed, on_card):
+    """Phase 23, inside `process_group`: the MoE family on the split plan
+    (each rank its E/m experts and its block of the shared experts'
+    columns over "model", its heads and vocab rows; routing replicated
+    over "model"; one layer gathered over "data" at a time), bf16, seeded,
+    at four ranks (smoke sizes in the rehearsal):
+    deepseek-moe-16b at full width and MOE_LAYERS layers trained 3 steps
+    on (2, 2) and on (1, 4), each against rank 0's one-card run of the
+    same global batch (in as many microbatches as the mesh's "data" ranks
+    run, each routing one rank's rows: ROADMAP §3): in f32 every step at
+    TRAIN_LOSS_RTOL, in bf16 the first at ONE_RANK_ATOL (MOE_MESH_RUNS);
+    deepseek-moe-16b at full size on (1, 4): a 32,768-token prefill (flash
+    on each rank's 4 heads) and 4 decode steps over DECODE_RUN's 8 rows x
+    32,768 slots, each against one card in bf16 and in f32
+    (`moe_serve_run`), then 3 train steps in 2 microbatches (rows from
+    `reckoned_train_peak`), its held bytes the specs'; qwen3-moe-235b-a22b
+    at full width and MOE_LAYERS layers on (1, 4), 32 experts a rank, the
+    same prefill and decode against one card. Every part runs; the phase
+    then fails if a check did. Returns rank 0's records and the flash
+    launches."""
+    import dataclasses
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs import ARCHS
+    from repro_torch.train import init_state
+    world, rank = tdist.get_world_size(), tdist.get_rank()
+    if world != 4:
+        fail(f"tp-moe runs on 4 ranks, not {world}")
+    dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))) if on_card else "cpu"
+    show = shower(rank)
+    knobs = MOE_RUN if on_card else MOE_REHEARSAL
+    run = DECODE_RUN if on_card else DECODE_REHEARSAL
+    seq = MOE_PREFILL if on_card else 256
+    chunk = PLAIN_CHUNK if on_card else 64
+    if on_card:        # every rank builds before the first collective, not inside one
+        from repro_torch.kernels import _build
+        _build.build_all(["flash_attention"])
+    full = ARCHS[MOE_ARCH] if on_card else ARCHS[MOE_ARCH].smoke()
+    out, launches, problems = {}, 0, []
+
+    # deepseek-moe-16b, 4 layers: (2, 2) and (1, 4) against one card
+    meshes, one_card = {}, {}
+    for spec in ("2,2", "1,4"):
+        mb = knobs["microbatches"] * int(spec.split(",")[0])
+        for dtype, plan in MOE_MESH_RUNS:
+            if plan == "gathered" and spec != "2,2":
+                continue
+            cfg = dataclasses.replace(full, n_layers=MOE_LAYERS, dtype=dtype)
+            r = moe_mesh_run(cfg, spec, knobs, seed, on_card, dev, plan)
+            if (dtype, mb) not in one_card:
+                one_card[dtype, mb] = moe_one_card_losses(cfg, knobs, mb, seed, dev, on_card)
+            r.update(dtype=dtype, one_card_losses=one_card[dtype, mb])
+            r["apart"] = [abs(x - w) for x, w in zip(r["losses"], r["one_card_losses"])]
+            meshes[f"{spec} {dtype} {r['plan']}"] = r
+    every = [None] * world
+    tdist.all_gather_object(every, {k: v["step_s"] for k, v in meshes.items()})
+    out["meshes"] = dict(model=full.name, layers=MOE_LAYERS, card=smi_line(on_card),
+                         seq=knobs["seq"], global_batch=knobs["global_batch"],
+                         microbatches=knobs["microbatches"], runs=meshes, step_s_by_rank=every)
+    show(dict(tp_moe="meshes", **out["meshes"]))
+    for name, r in meshes.items():
+        if r["held_bytes"] != r["spec_bytes"] or not all(map(math.isfinite, r["losses"])):
+            problems.append(f"tp-moe {name}: rank {rank} holds {r['held_bytes']} bytes (the specs "
+                            f"give {r['spec_bytes']}), losses {r['losses']}")
+        if r["dtype"] == "float32":
+            held = all(math.isclose(x, w, rel_tol=TRAIN_LOSS_RTOL)
+                       for x, w in zip(r["losses"], r["one_card_losses"]))
+        elif r["plan"] == "split":
+            held = r["apart"][0] <= ONE_RANK_ATOL
+        else:
+            held = True
+        if not held:     # the other parts still run: every check is read before it fails
+            problems.append(f"tp-moe {name}: losses {r['losses']} vs one card's "
+                            f"{r['one_card_losses']}")
+
+    # deepseek-moe-16b at full size on (1, 4): prefill, decode, then training
+    info, model, layout, whole = moe_serve_run("full size", full, f"1,{world}", run, seq, seed,
+                                               on_card, dev, DECODE_CHECK_ROWS, chunk, problems)
+    launches += info["flash_launches"]
+    total = torch.cuda.mem_get_info(dev)[1] if on_card else 1 << 62
+    rows = next((r for r in MOE_FULL_ROWS
+                 if reckoned_train_peak(full, world, r, knobs["seq"]) < MOE_FULL_SHARE * total),
+                None)
+    if rows is None:
+        fail(f"tp-moe: no row count of {MOE_FULL_ROWS} fits {full.name}'s reckoned peak")
+    fk = dict(knobs, global_batch=rows)
+    state = init_state(model)
+    state.layout = layout
+    trained = moe_train_steps(model, state, full, fk, dev, on_card)
+    trained.update(spec_bytes=spec_bytes(whole, layout), rows_total=rows,
+                   reckoned_peak_gb=reckoned_train_peak(full, world, rows, knobs["seq"]) / 1e9,
+                   card_total_gb=total / 1e9 if on_card else None,
+                   whole_state_gb=sum(n * (s + 8) for n, s in whole.values()) / 1e9)
+    info["train"] = trained
+    every = [None] * world
+    tdist.all_gather_object(every, dict(step_s=trained["step_s"], peak_gb=trained["peak_gb"]))
+    info["train"]["by_rank"] = every
+    out["full"] = info
+    show(dict(tp_moe="full size: train", **trained))
+    if trained["held_bytes"] != trained["spec_bytes"] or not all(
+            map(math.isfinite, trained["losses"])):
+        problems.append(f"tp-moe full size: rank {rank} holds {trained['held_bytes']} bytes "
+                        f"(the specs give {trained['spec_bytes']}), losses {trained['losses']}")
+    del model, state, layout
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # qwen3-moe-235b-a22b at full width, 4 layers, on (1, 4)
+    wide = ARCHS[MOE_WIDE_ARCH] if on_card else ARCHS[MOE_WIDE_ARCH].smoke()
+    wide = dataclasses.replace(wide, n_layers=MOE_LAYERS)
+    info, model, layout, _ = moe_serve_run("qwen3-moe", wide, f"1,{world}", run, seq, seed,
+                                           on_card, dev, run["rows"], chunk, problems)
+    launches += info["flash_launches"]
+    out["wide"] = info
+    del model, layout
+    if on_card:
+        torch.cuda.empty_cache()
+    entry = None
+    if on_card and rank == 0:      # flash at deepseek's shape a rank: 4 heads, 32K, D 128
+        from repro_torch.kernels.flash_attention.kernel import flash_attention
+        heads = full.n_heads // world
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        q, k, v = (torch.randn((heads, seq, full.hd), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        entry = flash_entry(q, k, v, flash_attention(q, k, v, causal=True), chunk,
+                            max(r["max_abs_err"] for r in out["full"]["flash_calls_held"]))
+        del q, k, v
+    tdist.barrier()
+    if problems:
+        fail("; ".join(problems))
+    return dict(out, launches=launches, flash=entry)
+
+
+# --------------------------------------------------------------------------
 # offline: edge-list I/O, the analysis CLI, the census against the dry run
 # --------------------------------------------------------------------------
 
@@ -3582,13 +4152,15 @@ def dry_run_of(arch, full, layers, world, mesh, seq, global_batch, microbatches)
 
 
 def dist_only(args, on_card):
-    """Phases 16, 17, 19, 21 and 22 alone (`--dist-only train`: phase 19
-    alone; `--dist-only tp`: phase 21 alone; `--dist-only decode`: phase
-    22 alone): every rank builds
-    rmat(--scale) on its card (cuda:LOCAL_RANK under torchrun) and its
-    cuda results, then runs the phases over all ranks in one process
-    group. On the card rank 0 prints a {"kernels": [...]} line of
-    flash_attention.bf16 with phase 21's launches when phase 21 ran."""
+    """Phases 16, 17, 19, 21, 22 and 23 alone (`--dist-only train`: phase
+    19 alone; `--dist-only tp`: phase 21 alone; `--dist-only decode`:
+    phase 22 alone; `--dist-only moe`: phase 23 alone, which needs 4
+    ranks and is skipped by a bare `--dist-only` at another count): every
+    rank builds rmat(--scale) on its card (cuda:LOCAL_RANK under torchrun)
+    and its cuda results, then runs the phases over all ranks in one
+    process group. On the card rank 0 prints a {"kernels": [...]} line of
+    flash_attention.bf16 with the launches of phases 21 and 23 when either
+    ran."""
     import torch
     from repro_torch.graph import rmat
     t0 = time.perf_counter()
@@ -3639,9 +4211,27 @@ def dist_only(args, on_card):
                   f"'model' {statistics.mean(dec['minicpm']['ms_per_step'][1:]):.1f} ms a step "
                   f"(steps 2 on), qwen2.5-3b {statistics.mean(dec['qwen']['ms_per_step'][1:]):.1f},"
                   f" served {dec['serve']['ms_per_token']:.1f} ms a token; == one card")
+        moe = None
+        if args.dist_only == "moe" or (args.dist_only == "all" and ranks == "4"):
+            t0 = time.perf_counter()
+            moe = tp_moe_phase(args.seed, on_card)
+            full = moe["full"]
+            phase("tp-moe", t0, f"ranks {ranks}: deepseek-moe-16b on (2, 2) and (1, 4) == one "
+                  f"card; at full size {full['experts_a_rank']} experts a rank, prefill "
+                  f"{full['prefill_s']:.3f} s, decode "
+                  f"{statistics.mean(full['decode_ms_per_step'][1:]):.1f} ms a step, train "
+                  f"{statistics.mean(full['train']['step_s'][1:]):.3f} s a step; qwen3-moe "
+                  f"{moe['wide']['experts_a_rank']} experts a rank; == one card")
+        elif args.dist_only == "all":
+            phase("tp-moe", time.perf_counter(), f"skipped: it runs on 4 ranks, not {ranks}")
     if int(os.environ.get("RANK", 0)) == 0:
-        if tp is not None and tp["flash"] is not None:
-            print(json.dumps({"kernels": [tp["flash"]]}))
+        flash = tp["flash"] if tp is not None else None
+        if moe is not None and moe["flash"] is not None:
+            if flash is None:
+                flash = moe["flash"]
+            flash["launches"] += moe["launches"]
+        if flash is not None:
+            print(json.dumps({"kernels": [flash]}))
         print("dist-only run finished: not a smoke run")
 
 
@@ -3654,10 +4244,11 @@ def main(argv=None):
     ap.add_argument("--trace", action="store_true",
                     help="profile one more call of each cuda run (phase 7)")
     ap.add_argument("--dist-only", nargs="?", const="all",
-                    choices=("all", "train", "tp", "decode"),
-                    help="the graph, its cuda results and phases 16, 17, 19, 21 and 22 alone "
-                         "('train': phase 19 alone, 'tp': phase 21 alone, 'decode': phase 22 "
-                         "alone; under torchrun: one rank a card); not a smoke run")
+                    choices=("all", "train", "tp", "decode", "moe"),
+                    help="the graph, its cuda results and phases 16, 17, 19, 21, 22 and 23 "
+                         "alone ('train': phase 19 alone, 'tp': phase 21 alone, 'decode': phase "
+                         "22 alone, 'moe': phase 23 alone; under torchrun: one rank a card); "
+                         "not a smoke run")
     args = ap.parse_args(argv)
     on_card = args.device == "cuda"
 

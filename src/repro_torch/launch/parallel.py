@@ -1,7 +1,8 @@
 """Collectives with their gradients, over one axis of a `dist.Mesh`: the
 pieces of the split plan (`launch.sharding.SplitPlan`), by which a rank of
-a dense model computes with its own blocks of heads, ff columns and vocab
-rows over "model" and gathers each layer's weights over "data".
+a dense or MoE model computes with its own blocks of heads, ff columns,
+experts and vocab rows over "model" and gathers each layer's weights over
+"data".
 
 Each is a `torch.autograd.Function` over a `dist.Mesh1D` (one axis's
 sub-group); over an axis of size 1 each is the identity:
@@ -18,8 +19,9 @@ sub-group); over an axis of size 1 each is the identity:
                     are equal);
   * `gather_many` — `gather_over` of several tensors, each along its own
                     dim, in one all-gather of their blocks laid end to end
-                    (and one reduce-scatter backward): a layer's leaves
-                    split over "data" make one collective, not one each;
+                    a dtype (and one reduce-scatter backward): a layer's
+                    leaves split over "data" make one collective a dtype,
+                    not one each, and keep their dtypes;
   * `vocab_embed`, `vocab_cross_entropy` — the embedding lookup and the
                     loss over a vocab split into blocks, one a rank.
 
@@ -155,11 +157,23 @@ def gather_over(x, ax, dim, summed=True):
 
 def gather_many(xs, ax, dims, summed=True):
     """`gather_over(x, ax, dim, summed)` of each x in `xs` along its dim in
-    `dims`, in one all-gather (backward: one reduce-scatter, or each rank's
-    blocks as `gather_over` keeps them). The tensors share one dtype."""
+    `dims`, in one all-gather per dtype, in the order each dtype first
+    appears (backward: one reduce-scatter per dtype, or each rank's blocks
+    as `gather_over` keeps them). Each comes back in its own dtype: the
+    blocks of one all-gather share a dtype, so an f32 router beside bf16
+    experts is never promoted, nor they with it."""
     if ax.size == 1 or not xs:
         return list(xs)
-    return list(_GatherMany.apply(ax, tuple(dims), summed, *xs))
+    groups = {}
+    for i, x in enumerate(xs):
+        groups.setdefault(x.dtype, []).append(i)
+    out = [None] * len(xs)
+    for idx in groups.values():
+        whole = _GatherMany.apply(ax, tuple(dims[i] for i in idx), summed,
+                                  *(xs[i] for i in idx))
+        for i, w in zip(idx, whole):
+            out[i] = w
+    return out
 
 
 def vocab_embed(table, tokens, lo, ax):

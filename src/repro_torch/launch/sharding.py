@@ -25,22 +25,25 @@ How a rank computes with its blocks is the layout's plan
 (`Layout.plan_for`), what GSPMD derives from the same specs in the
 reference:
 
-  * "split" (the dense family, `SplitPlan`): each rank runs its block of
-    query heads, of ff columns and of vocab rows over "model" and its
-    rows of the batch over the batch axes; each layer's weights are
-    gathered over "data" when the layer runs, in one all-gather (inside
-    its remat, so the recompute gathers again), and freed after it, and
-    each gradient is reduce-scattered into the rank's block by the
-    backward of that gather (`launch.parallel`). A leaf the guard replicated over "model"
-    is computed replicated. Decode runs it too: the rank holds its block
-    of the KV cache by `cache_specs` (its rows, and its block of the
-    sequence over "model"), and attention combines the ranks' blocks in
-    a softmax across "model" (`models.attention.split_attention_decode`).
-  * "gathered" (the other families): the step gathers every
-    parameter whole over the axes that split it, runs this rank's rows,
-    reduce-scatters each gradient into this rank's block (`reduce_grads`)
-    and updates its blocks. Every rank of a "model" group then computes
-    the same rows, and its peak holds the whole model (ROADMAP item 15).
+  * "split" (the dense and MoE families, `SplitPlan`): each rank runs its
+    block of query heads, of ff columns, of experts (an MoE layer's
+    [E, ...] leaves, E/m a rank; its shared experts' ff columns) and of
+    vocab rows over "model" and its rows of the batch over the batch
+    axes; each layer's weights are gathered over "data" when the layer
+    runs, in one all-gather a dtype (inside its remat, so the recompute
+    gathers again), and freed after it, and each gradient is
+    reduce-scattered into the rank's block by the backward of that gather
+    (`launch.parallel`). A leaf the guard replicated over "model" is
+    computed replicated. Decode runs it too: the rank holds its block of
+    the KV cache by `cache_specs` (its rows, and its block of the
+    sequence over "model"), and attention combines the ranks' blocks in a
+    softmax across "model" (`models.attention.split_attention_decode`).
+  * "gathered" (the hybrid, xLSTM and enc-dec families): the step gathers
+    every parameter whole over the axes that split it, runs this rank's
+    rows, reduce-scatters each gradient into this rank's block
+    (`reduce_grads`) and updates its blocks. Every rank of a "model"
+    group then computes the same rows, and its peak holds the whole
+    model (ROADMAP item 15d).
 
 The collectives are hand-written over the mesh's per-axis sub-groups.
 """
@@ -54,6 +57,7 @@ import torch
 import torch.distributed as tdist
 
 from ..core.dist import Mesh1D
+from ..models.layers import rmsnorm
 from ..models.weights import STACKED, leaf_groups
 from .parallel import (all_gather, all_reduce, copy_to, gather_many, gather_over,
                        reduce_from, reduce_scatter, vocab_cross_entropy, vocab_embed)
@@ -64,6 +68,7 @@ _IN_OUT = {"wq", "wk", "wv", "wz", "wi", "wf", "wo_gate", "in_proj",
 _OUT_IN = {"wo", "out", "out_proj", "w_down"}   # [X, d] → P(model, data)
 _STACKED = set(STACKED)
 _ONE = Mesh1D(group=None, size=1, rank=0, device=None)     # an axis of one rank: no collective
+SPLIT_FAMILIES = ("dense", "moe")      # the families a rank computes on the split plan
 
 
 class P(tuple):
@@ -224,7 +229,7 @@ class Layout:
     entry names axes (a, b, ...) splits into their product of equal
     blocks, row-major over those axes, as a jax NamedSharding lays it out."""
 
-    _plan = None    # "gathered" runs a dense model on the gathered plan: to compare the two
+    _plan = None    # "gathered" runs a split-family model on the gathered plan: to compare the two
 
     def __init__(self, mesh, specs: dict, batch_axes=()):
         self.mesh = mesh
@@ -233,12 +238,13 @@ class Layout:
 
     def plan_for(self, cfg) -> str:
         """How a model of `cfg` computes on this layout: "split" for the
-        dense family (`SplitPlan`), "gathered" for the others."""
-        return self._plan or ("split" if cfg.family == "dense" else "gathered")
+        families of `SPLIT_FAMILIES` (`SplitPlan`), "gathered" for the
+        others."""
+        return self._plan or ("split" if cfg.family in SPLIT_FAMILIES else "gathered")
 
     def split_plan(self, cfg, params: dict) -> "SplitPlan":
-        """The split plan of a dense model of `cfg` with parameters `params`
-        (name → parameter, holding this rank's blocks)."""
+        """The split plan of a dense or MoE model of `cfg` with parameters
+        `params` (name → parameter, holding this rank's blocks)."""
         return SplitPlan(self, cfg, params)
 
     def axis(self, name) -> Mesh1D:
@@ -429,7 +435,7 @@ def held_bytes(state) -> int:
 
 
 # --------------------------------------------------------------------------
-# the split plan: how a rank of a dense model computes with its blocks
+# the split plan: how a rank of a dense or MoE model computes with its blocks
 # --------------------------------------------------------------------------
 
 def _kv_heads(cfg, lo, hi):
@@ -447,9 +453,9 @@ def _kv_heads(cfg, lo, hi):
 
 
 class SplitPlan:
-    """The compute plan of a dense model on a `Layout` (the counterpart of
-    what GSPMD derives from the reference's specs and its activation
-    constraints), leaf by leaf:
+    """The compute plan of a dense or MoE model on a `Layout` (the
+    counterpart of what GSPMD derives from the reference's specs and its
+    activation constraints), leaf by leaf:
 
       wq, bq          column split: the rank's query heads [lo, hi) of
                       H, H·r//m to H·(r+1)//m on "model" rank r of m
@@ -459,8 +465,19 @@ class SplitPlan:
                       h // (H / Hkv)): its own block when m divides H and
                       Hkv, else gathered over "model" and sliced;
       wo              row split over the same heads, then `reduce_from`;
+      q_norm, k_norm  replicated; where the heads split, the scale passes
+                      `copy_to`, so the ranks' parts of its gradient (each
+                      from its own heads) add into the whole;
       w_gate, w_up /  column / row split over the rank's ff block, then
       w_down          `reduce_from`;
+      moe.w_gate,     the rank's experts [E·r/m, E·(r+1)/m), its own
+      w_up, w_down    blocks of the [E, ...] leaves (`moe_weights`);
+      moe.router      whole (gathered over "data"), routing computed
+                      alike on every rank of "model";
+      moe.shared      the shared experts' MLP: column / row split over the
+                      rank's block of their ff columns, its partial
+                      product joining the experts' before one
+                      `reduce_from` in f32 (`models.moe.moe_ffn`);
       embed / unembed vocab split: `vocab_embed` on the rank's vocab rows
                       and the logits of its vocab block
                       (`vocab_cross_entropy`; `gather_vocab` for whole
@@ -473,22 +490,23 @@ class SplitPlan:
 
     A replicated leaf used as a slice (bq to bv) passes `copy_to` first, so
     its slices' gradients add into the whole leaf over "model". A group
-    (the heads, the ff columns, the vocab) whose leaves the guard put back
-    to replication over "model", or whose heads are fewer than the
-    "model" ranks, is computed replicated: its leaves whole, no collective
-    over "model". Before any of that a leaf split over "data" is gathered
-    over "data", a layer's leaves in one all-gather (`gather_layer`), the
-    backward summing each gradient into the rank's block when "data"
-    splits the batch.
+    (the heads, the ff columns, the experts, the shared experts' columns,
+    the vocab) whose leaves the guard put back to replication over
+    "model", or whose heads are fewer than the "model" ranks, is computed
+    replicated: its leaves whole, no collective over "model". Before any
+    of that a leaf split over "data" is gathered over "data", a layer's
+    leaves in one all-gather a dtype (`gather_layer`), the backward
+    summing each gradient into the rank's block when "data" splits the
+    batch.
 
     Every rank of an axis makes the same collectives in the same order:
     which leaves are gathered follows from the config and the mesh, never
-    from a rank's coordinates."""
+    from a rank's coordinates or from the routing."""
 
     def __init__(self, layout: Layout, cfg, params: dict):
-        if cfg.family != "dense":
-            raise ValueError(f"{cfg.name}: the split plan covers the dense family, "
-                             f"not {cfg.family!r}")
+        if cfg.family not in SPLIT_FAMILIES:
+            raise ValueError(f"{cfg.name}: the split plan covers the families "
+                             f"{SPLIT_FAMILIES}, not {cfg.family!r}")
         self.layout, self.cfg = layout, cfg
         self.names = {id(p): n for n, p in params.items()}
         self._gathered = {}          # id(leaf) → the leaf gathered over "data" (`gather_layer`)
@@ -518,6 +536,21 @@ class SplitPlan:
             self.own_kv = self.own_q and hkv % m == 0
         self.f = block(ff) if self.ff else (0, ff)
         self.v = block(cfg.vocab_padded) if self.vocab else (0, cfg.vocab_padded)
+        # an MoE layer: its experts [E, ...] and its shared experts' ff columns
+        e, sff = cfg.n_experts, cfg.d_ff * cfg.n_shared_experts
+        self.experts = split("layers.0.moe.w_gate", 0)
+        self.shared = split("layers.0.moe.shared.w_gate", 1)
+        for name, dim, n in (("layers.0.moe.w_gate", 0, e), ("layers.0.moe.w_up", 0, e),
+                             ("layers.0.moe.w_down", 0, e),
+                             ("layers.0.moe.shared.w_gate", 1, sff),
+                             ("layers.0.moe.shared.w_up", 1, sff),
+                             ("layers.0.moe.shared.w_down", 0, sff)):
+            if split(name, dim) != (self.experts if ".shared." not in name else self.shared) \
+                    or (split(name, dim) and n % m):
+                raise ValueError(f"{cfg.name}: {name} splits over {m} model ranks unlike its "
+                                 "group, or unevenly; the split plan cannot run its MoE layers")
+        self.e = block(e) if self.experts else (0, e)
+        self.sf = block(sff) if self.shared else (0, sff)
 
     # -- leaves ----------------------------------------------------------------
     def _data_dim(self, p):
@@ -582,16 +615,53 @@ class SplitPlan:
             w = {n: self._take(getattr(attn, n), *cols[n]) for n in names}
         return types.SimpleNamespace(cfg=cfg, split=self.heads,
                                      kv_blocks=all_kv and self.heads and self.own_kv,
-                                     q_norm=getattr(attn, "q_norm", None),
-                                     k_norm=getattr(attn, "k_norm", None), **w)
+                                     q_norm=self._head_norm(getattr(attn, "q_norm", None)),
+                                     k_norm=self._head_norm(getattr(attn, "k_norm", None)), **w)
+
+    def _head_norm(self, norm):
+        """A qk-norm for the rank's heads: where the heads split, one that
+        applies the scale through `copy_to`, so the backward sums the
+        ranks' parts of its gradient (each rank's heads give one part)
+        into the whole scale; else the module itself."""
+        if norm is None or not self.heads:
+            return norm
+        scale = copy_to(norm.scale, self.model)
+        return lambda x, eps=1e-5: rmsnorm(scale, x, eps)
+
+    def _columns(self, mlp, split, cols):
+        """(w_gate, w_up, w_down) of a SwiGLU `mlp`: the rank's own block
+        `cols` of its ff columns and rows where `split`, else whole."""
+        if not split:
+            return tuple(self._take(w) for w in (mlp.w_gate, mlp.w_up, mlp.w_down))
+        lo, hi = cols
+        return (self._take(mlp.w_gate, 1, lo, hi, True), self._take(mlp.w_up, 1, lo, hi, True),
+                self._take(mlp.w_down, 0, lo, hi, True))
 
     def mlp_weights(self, mlp):
         """(w_gate, w_up, w_down): the rank's ff columns and rows."""
-        if not self.ff:
-            return tuple(self._take(w) for w in (mlp.w_gate, mlp.w_up, mlp.w_down))
-        lo, hi = self.f
-        return (self._take(mlp.w_gate, 1, lo, hi, True), self._take(mlp.w_up, 1, lo, hi, True),
-                self._take(mlp.w_down, 0, lo, hi, True))
+        return self._columns(mlp, self.ff, self.f)
+
+    def moe_weights(self, moe):
+        """The rank's weights of an `MoE` block: `router` whole (gathered
+        over "data", replicated over "model"); `w_gate`, `w_up`, `w_down`
+        the rank's own blocks of experts [elo, ehi) = `e` where `experts`,
+        else every expert; `shared` the shared experts' (w_gate, w_up,
+        w_down), the rank's block of their ff columns where
+        `shared_split`, else whole (None without shared experts)."""
+        lo, hi = self.e
+        names = ("w_gate", "w_up", "w_down")
+        if self.experts:
+            w = {n: self._take(getattr(moe, n), 0, lo, hi, True) for n in names}
+            if w["w_gate"].shape[0] != hi - lo:
+                raise ValueError(f"{self.cfg.name}: an MoE layer holds {w['w_gate'].shape[0]} "
+                                 f"experts, not the plan's block [{lo}, {hi})")
+        else:
+            w = {n: self._take(getattr(moe, n)) for n in names}
+        shared = getattr(moe, "shared", None)
+        return types.SimpleNamespace(
+            router=self._take(moe.router), experts=self.experts, e=self.e,
+            shared=None if shared is None else self._columns(shared, self.shared, self.sf),
+            shared_split=self.shared, **w)
 
     # -- the KV cache (decode) ---------------------------------------------------
     def cache_slots(self, max_len: int) -> tuple:

@@ -20,11 +20,13 @@ reference's `jax.checkpoint` on its scan body. Serving runs under
 `inference_mode`, where it has no effect.
 
 `set_constraint_mesh(layout)` installs a layout's split plan on a dense
-model whose parameters hold this rank's blocks (`launch.sharding.place`
-does it): the counterpart of the reference's `set_constraint_mesh` and of
-its constraint pinning the logits vocab-split. The forward then runs the
-embedding, each layer and the logits through the plan (each layer's
-gathers inside its remat body, so the recompute gathers again) and returns
+or MoE model whose parameters hold this rank's blocks
+(`launch.sharding.place` does it): the counterpart of the reference's
+`set_constraint_mesh` and of its constraint pinning the logits
+vocab-split. The forward then runs the embedding, each layer (its heads,
+its ff columns or its experts and shared-expert columns) and the logits
+through the plan (each layer's gathers inside its remat body, so the
+recompute gathers again) and returns
 the logits of the rank's vocab block, or with `last_only` the whole
 last-token logits gathered over "model". `init_cache` then allocates the
 rank's block of the KV cache, and `decode_step` runs the plan too.
@@ -62,9 +64,10 @@ class DenseLayer(nn.Module):
             self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, generator=generator)
 
     def ffn(self, x, cfg, plan=None):
-        """The FFN and its aux loss (0.0 without experts)."""
+        """The FFN and its aux loss (0.0 without experts); with `plan` the
+        rank's ff columns, or its experts and shared-expert columns."""
         if cfg.family == "moe":
-            return self.moe(x, cfg)
+            return self.moe(x, cfg, plan)
         return self.mlp(x, plan), 0.0
 
     def forward(self, x, positions, impl, cfg, plan=None):
@@ -146,7 +149,7 @@ class Transformer(nn.Module):
 
     def set_constraint_mesh(self, layout):
         """Installs the split plan of `layout` (a `launch.sharding.Layout`
-        whose blocks the parameters hold) on this dense model; None
+        whose blocks the parameters hold) on this dense or MoE model; None
         removes it. The reference's `set_constraint_mesh`, per model."""
         if layout is None:
             self.plan = None
@@ -220,7 +223,7 @@ class Transformer(nn.Module):
     def decode_step(self, tokens, cache: dict, pos: int):
         """tokens: [B, 1]; pos: the position. Returns (logits [B, V] f32,
         cache), the cache updated in place. Under a split plan (a dense
-        model) tokens are the rank's rows and the cache its block
+        or MoE model) tokens are the rank's rows and the cache its block
         (`init_cache` with the plan installed): the embedding, each layer
         and the logits run through the plan, and the logits come back
         whole, equal on every rank of "model"."""

@@ -173,7 +173,7 @@ def test_dry_run_scaling_equals_the_whole_steps_census():
         rec = dryrun.train_census(cfg, seq=32, global_batch=16, microbatches=4,
                                   impl="ref", mesh=mesh)
         model = build(cfg, device=META)
-        state = lt.shard(init_state(model), mesh, 16)
+        state = lt.init_sharded(model, mesh, 16)
         step = make_train_step(model, OptimizerConfig(total_steps=10_000), microbatches=4,
                                impl="ref")
         whole = analyze(step, state, dryrun.input_specs(cfg, "train", 8, 32))
@@ -213,6 +213,27 @@ def test_split_decode_cuts_a_ranks_bytes(monkeypatch):
         split = dryrun.serve_census(cfg, cell, mesh)
         monkeypatch.setattr(sh.Layout, "_plan", "gathered")
         gathered = dryrun.serve_census(cfg, cell, mesh)
+    assert split["plan"] == "split" and gathered["plan"] == "gathered"
+
+    def held(rec):
+        return rec["memory"]["argument_size_in_bytes"] + rec["memory"]["temp_size_in_bytes"]
+    assert held(split) < held(gathered)
+    assert 0 < split["flops"] < gathered["flops"]
+    assert split["held_bytes"] == gathered["held_bytes"]
+
+
+def test_split_moe_cuts_a_ranks_flops_and_bytes(monkeypatch):
+    """A deepseek-moe-16b smoke train cell on a fake world of 8 ranks, mesh
+    (2, 4): on the split plan a rank runs its 2 of 8 experts and its
+    block of the shared expert's columns, so its dot FLOPs and its
+    argument plus temp bytes fall below the gathered plan's (every expert
+    gathered whole and run on every rank); each record names its plan."""
+    cfg = dataclasses.replace(configs.ARCHS["deepseek-moe-16b"].smoke(), n_layers=2)
+    with dryrun.fake_world(8):
+        mesh = lt.make_mesh("2,4", device="meta")
+        split = dryrun.train_census(cfg, seq=32, global_batch=8, microbatches=2, mesh=mesh)
+        monkeypatch.setattr(sh.Layout, "_plan", "gathered")
+        gathered = dryrun.train_census(cfg, seq=32, global_batch=8, microbatches=2, mesh=mesh)
     assert split["plan"] == "split" and gathered["plan"] == "gathered"
 
     def held(rec):

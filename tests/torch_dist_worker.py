@@ -331,7 +331,7 @@ def run_moments(payload, mesh):
     from repro_torch.launch import train as lt
     from repro_torch.models import build
     from repro_torch.train import checkpoint as ckpt
-    from repro_torch.train import init_state, make_train_step
+    from repro_torch.train import make_train_step
     out = {}
     for cid, arch, layers, spec_a, specs_b, steps, cut in payload:
         cfg = dataclasses.replace(ARCHS[arch].smoke(), n_layers=layers)
@@ -342,7 +342,7 @@ def run_moments(payload, mesh):
         def train(spec, start, restore=False, drop=False, save=False):
             m = lt.make_mesh(spec, device="cpu")
             model = build(cfg, device="cpu", seed=0)
-            state = lt.shard(init_state(model), m, 8)
+            state = lt.init_sharded(model, m, 8)
             if restore:
                 state = ckpt.restore(d[0], cut, state, shardings=state.layout)
             if drop:
@@ -555,13 +555,161 @@ def run_split_decode(payload, mesh):
     return out
 
 
+def _model_collectives(group):
+    """A counter of the collectives over `group` made while `counting[0]`
+    is set: (counting, counts), with torch.distributed's all-reduce and
+    `launch.parallel`'s all-gather and reduce-scatter wrapped until
+    `restore()`."""
+    import torch.distributed as tdist
+    from repro_torch.launch import parallel as par
+    counting, counts = [False], []
+    saved = (tdist.all_reduce, par._ALL_GATHER, par._REDUCE_SCATTER)
+
+    def counted(fn):
+        def call(*a, **kw):
+            if counting[0] and kw.get("group") is group:
+                counts.append(fn.__name__)
+            return fn(*a, **kw)
+        return call
+    tdist.all_reduce, par._ALL_GATHER, par._REDUCE_SCATTER = map(counted, saved)
+
+    def restore():
+        tdist.all_reduce, par._ALL_GATHER, par._REDUCE_SCATTER = saved
+    return counting, counts, restore
+
+
+def run_split_moe(payload, mesh):
+    """payload: [dict(id, kind, arch, overrides, arrays, spec, steps,
+    microbatches, seq, global_batch)]. The arch's smoke config at 2 layers
+    in f32 (with the overrides), holding the reference's weights
+    (`from_reference`), placed on the mesh by the specs (the family's
+    plan) with `Layout.gather_params` made to raise. kind "steps": the
+    split prefill's last-token logits of step 0's rows (`impl="chunked"`),
+    counting the collectives over "model" made inside the MoE layers, then
+    `steps` train steps of `launch.train`'s data; returns the losses, grad
+    norms and held bytes, the plan's choices, the rank's blocks of the
+    leaves "model" does not split (with its "data" coordinate) and (rank
+    0) every parameter gathered. kind "layer": the same prefill, returning
+    each MoE layer's input and output and its routing (`_dispatch`: the
+    expert and slot of each assignment, the [E, C] dispatch)."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import train as lt
+    from repro_torch.launch.mesh import effective_batch_axes
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.weights import from_reference
+    from repro_torch.train import OptimizerConfig, init_state, make_train_step
+
+    def refuse(self, params):
+        raise AssertionError("a split MoE step gathered the parameters whole")
+    out = {}
+    for c in payload:
+        cfg = dataclasses.replace(ARCHS[c["arch"]].smoke(), n_layers=2, dtype="float32",
+                                  **c["overrides"])
+        m = lt.make_mesh(c["spec"], device="cpu")
+        model = from_reference(c["arrays"], cfg, device="cpu")
+        state = init_state(model)
+        gb = c["global_batch"]
+        lay = sh.named(m, sh.param_specs(state.params, dict(m.shape)),
+                       effective_batch_axes(m, gb))
+        lay.gather_params = types.MethodType(refuse, lay)
+        state = sh.place(state, lay)
+        plan = model.net.plan
+        dc = lt.data_config(cfg, c["seq"], gb)
+        rows = lay.rows(gb)
+        res = dict(ran=lay.plan_for(cfg), rows=[rows.start, rows.stop],
+                   plan=dict(heads=plan.heads, experts=plan.experts, shared=plan.shared,
+                             e=plan.e, sf=plan.sf, q=plan.q))
+        layers, dispatch = [], []
+        hooks = [mod.register_forward_hook(
+            lambda mod, args, o: layers.append((host(args[0]), host(o[0]))))
+            for mod in model.net.modules() if isinstance(mod, moe_mod.MoE)]
+        split_dispatch = moe_mod._dispatch
+
+        def recorded(*a):
+            got = split_dispatch(*a)
+            dispatch.append(tuple(host(x) for x in got))
+            return got
+        moe_mod._dispatch = recorded
+        counting, counts, restore = _model_collectives(plan.model.group)
+        orig_forward = moe_mod.MoE.forward
+
+        def counted_forward(self, *a, **kw):
+            counting[0] = True
+            try:
+                return orig_forward(self, *a, **kw)
+            finally:
+                counting[0] = False
+        moe_mod.MoE.forward = counted_forward
+        try:
+            with torch.no_grad():
+                prefill, _ = model(lt.batch_for(cfg, dc, 0, "cpu", rows), impl="chunked",
+                                   last_only=True)
+        finally:
+            moe_mod.MoE.forward = orig_forward
+            moe_mod._dispatch = split_dispatch
+            restore()
+            for h in hooks:
+                h.remove()
+        res.update(prefill=host(prefill), moe_model_collectives=len(counts))
+        if c["kind"] == "layer":
+            out[c["id"]] = dict(res, layers=layers, dispatch=dispatch)
+            continue
+        step = make_train_step(model, OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10),
+                               microbatches=c["microbatches"])
+        hist = []
+        for i in range(c["steps"]):
+            state, met = step(state, lt.batch_for(cfg, dc, i, "cpu", rows))
+            hist.append(dict(loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+                             lr=float(met["lr"]), held_bytes=sh.held_bytes(state)))
+        unsplit = {n: host(p.detach()) for n, p in state.params.items()
+                   if not any("model" in sh._axes(e) for _, e in lay._split(n))}
+        whole = {n: host(lay.gather(n, p.detach())) for n, p in state.params.items()}
+        out[c["id"]] = dict(res, history=hist, data_rank=lay.axis("data").rank,
+                            not_model_split=unsplit,
+                            params=whole if mesh.rank == 0 else None)
+    return out
+
+
+def run_gather_dtypes(payload, mesh):
+    """payload: [(case_id, seed)]. One "data" axis of the world: a bf16
+    leaf [8, 12] split by rows and an f32 leaf [12, 8] split by columns,
+    gathered together by `gather_many` (summed: each rank its rows of x;
+    not summed: all of x). Returns each whole leaf as it came (its dtype's
+    name, its values in f32) and the rank's gradient blocks."""
+    from repro_torch.core import dist
+    from repro_torch.launch import parallel as par
+    out = {}
+    for cid, seed in payload:
+        a = split_case_arrays(seed, SPLIT_CASE_SHAPES)
+        data = dist.make_mesh((mesh.size, 1), ("data", "model"), device="cpu").axis("data")
+        res = {}
+        for summed in (True, False):
+            w1 = par.block_of(torch.from_numpy(a["w_gate"]).bfloat16(), 0, data) \
+                .clone().requires_grad_()
+            w2 = par.block_of(torch.from_numpy(a["w_down"]), 1, data).clone().requires_grad_()
+            x = torch.from_numpy(a["x"])
+            rows = par.block_of(x, 0, data) if summed else x
+            g1, g2 = par.gather_many([w1, w2], data, [0, 1], summed=summed)
+            (((rows @ g1.float()) @ g2) ** 2).sum().backward()
+            res[f"summed={summed}"] = dict(
+                dtypes=(str(g1.dtype), str(g2.dtype), str(w1.grad.dtype), str(w2.grad.dtype)),
+                w1=host(g1.detach().float()), w2=host(g2.detach()),
+                grad1=host(w1.grad.float()), grad2=host(w2.grad))
+        out[cid] = res
+    return out
+
+
 def run_cases(payload: dict, mesh) -> dict:
     """Each section of the payload ("programs", "exchanges", "gathers",
     "grid", "pods", "tune", "train", "reduce", "moments", "split_functions",
-    "split_steps", "split_decode"), in that order on every rank."""
+    "split_steps", "split_decode", "split_moe", "gather_dtypes"), in that
+    order on every rank."""
     jobs = {"programs": run_programs, "exchanges": run_exchanges, "gathers": run_gathers,
             "grid": run_grid, "pods": run_pods, "tune": run_tune, "train": run_train,
             "reduce": run_reduce, "moments": run_moments,
             "split_functions": run_split_functions, "split_steps": run_split_steps,
-            "split_decode": run_split_decode}
+            "split_decode": run_split_decode, "split_moe": run_split_moe,
+            "gather_dtypes": run_gather_dtypes}
     return {k: jobs[k](payload[k], mesh) for k in jobs if k in payload}
