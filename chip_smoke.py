@@ -4,11 +4,12 @@
     python3 chip_smoke.py                          # the smoke run: one card, RMAT scale 22
     python3 chip_smoke.py --trace                  # ... and where each run's time goes
     python3 chip_smoke.py --scale 10 --device cpu  # rehearsal of the plain versions
-    torchrun --nproc-per-node 4 chip_smoke.py --dist-only   # phases 16, 17, 19, 21-23 on 4 cards
+    torchrun --nproc-per-node 4 chip_smoke.py --dist-only   # phases 16, 17, 19, 21-24 on 4 cards
     torchrun --nproc-per-node 4 chip_smoke.py --dist-only train   # phase 19 alone
     torchrun --nproc-per-node 4 chip_smoke.py --dist-only tp      # phase 21 alone
     torchrun --nproc-per-node 4 chip_smoke.py --dist-only decode  # phase 22 alone
     torchrun --nproc-per-node 4 chip_smoke.py --dist-only moe     # phase 23 alone
+    torchrun --nproc-per-node 4 chip_smoke.py --dist-only ssm     # phase 24 alone
 
 Phases, each printed with its own seconds; any failure exits non-zero:
 
@@ -187,17 +188,19 @@ graph:
                digest), the winner's dist equal to `cuda`'s.
 
 `--dist-only` runs the graph, its `cuda` baselines and phases 16, 17, 19,
-21, 22 and 23 alone (`--dist-only train`: phase 19 alone, `--dist-only
+21, 22, 23 and 24 alone (`--dist-only train`: phase 19 alone, `--dist-only
 tp`: phase 21 alone, `--dist-only decode`: phase 22 alone, `--dist-only
-moe`: phase 23 alone; phase 23 needs 4 ranks); under `torchrun
+moe`: phase 23 alone, `--dist-only ssm`: phase 24 alone; phases 23 and
+24 need 4 ranks); under `torchrun
 --nproc-per-node 4 chip_smoke.py --dist-only` (one card a rank, NCCL)
 phase 17 takes the grids (2, 2), (1, 4) and (4, 1) and the pods (2, 2)
 and (4, 1), a pod count above 1 holding `_gather_elems` to the sum of
 each pod's slice run alone; only rank 0 prints. On the card rank 0 ends
 with a {"kernels": [...]} line of flash_attention.bf16 with the launches
-of phases 21 and 23, timed at their shape (BH = 4, S = 32,768, D = 128).
+of phases 21, 23 and 24, timed at the first one's shape (BH = 4, S =
+32,768, D = 128; phase 24 alone: BH = 8, D = 64).
 
-Phase 18 runs after phase 15, phases 19, 21, 22 and 23 only under
+Phase 18 runs after phase 15, phases 19, 21, 22, 23 and 24 only under
 --dist-only:
 
  18. train   — qwen2.5-3b at full width and depth (bf16, seeded init)
@@ -304,7 +307,28 @@ Phase 18 runs after phase 15, phases 19, 21, 22 and 23 only under
                width and 4 layers on (1, 4), 32 experts a rank, the same
                prefill and decode (all 8 rows) against one card. Prints
                beside nvidia-smi's name and power limit; runs every
-               part and then fails if any check did.
+               part and then fails if any check did;
+ 24. tp-ssm  — the recurrent families on the split plan (each rank its
+               Mamba2 or mLSTM heads, its sLSTM channels, zamba2's
+               shared-attention heads and ff columns, its vocab rows
+               over "model"; one layer gathered over "data" at a time),
+               seeded, 4 ranks (`--dist-only ssm` alone, or a bare
+               `--dist-only` at 4 ranks): zamba2-1.2b at full width and
+               12 layers and xlstm-1.3b at 7, f32, 3 steps of 8 x 2,048
+               tokens (xlstm 8 x 512) on (2, 2) and (1, 4), the specs'
+               bytes held, losses at TRAIN_LOSS_RTOL of rank 0's one-card
+               run, then a 2,048-token prefill and 4 decode steps (8 rows
+               x 4,096 slots) at F32_LOGIT_ATOL of one card's; then each
+               at full size in bf16 on (1, 4): a prefill (zamba2 32,768
+               tokens, flash on each rank's 8 heads at its 6 sites, 6
+               launches a rank, the first call held against
+               attention_ref in blocks; xlstm 4,096), 4 decode steps over
+               8 rows x 32,768 slots (against one card's rows 0 and 1:
+               printed), every rank's cache bytes the plan's
+               (`plan_state_bytes`, ROADMAP §3), and 3 train steps of 4 x
+               2,048 tokens (xlstm 4 x 512) at the specs' bytes, finite.
+               Prints beside nvidia-smi's name and power limit; runs
+               every part and then fails if any check did.
 
 Phase 20 runs after phase 18:
 
@@ -3983,6 +4007,370 @@ def tp_moe_phase(seed, on_card):
 
 
 # --------------------------------------------------------------------------
+# tp-ssm: the recurrent families on the split plan (phase 24, across ranks)
+# --------------------------------------------------------------------------
+
+SSM_ARCHS = ("zamba2-1.2b", "xlstm-1.3b")
+# the f32 runs against one card: full width, cut depth (zamba2: two
+# shared-attention sites; xlstm: 6 mLSTM layers and 1 sLSTM layer)
+SSM_LAYERS = {"zamba2-1.2b": 12, "xlstm-1.3b": 7}
+# (seq, global batch, microbatches, steps, lr) of the f32 runs, the card's
+# and the rehearsal's; xlstm's sLSTM runs one step per token (ROADMAP L3)
+SSM_RUN = {"zamba2-1.2b": dict(seq=2048, global_batch=8, microbatches=2, steps=3, lr=1e-3),
+           "xlstm-1.3b": dict(seq=512, global_batch=8, microbatches=2, steps=3, lr=1e-3)}
+SSM_REHEARSAL = {a: dict(r, seq=32) for a, r in SSM_RUN.items()}
+# full size on (1, 4): the prefill's tokens (xlstm: phase 15's cut) and
+# the train steps' rows x tokens (train_4k cut to a card's share)
+SSM_PREFILL = {"zamba2-1.2b": 32768, "xlstm-1.3b": 4096}
+SSM_FULL_TRAIN = {"zamba2-1.2b": dict(SSM_RUN["zamba2-1.2b"], global_batch=4),
+                  "xlstm-1.3b": dict(SSM_RUN["xlstm-1.3b"], global_batch=4)}
+SSM_F32_CHECK_ROWS = 8        # the f32 decode's rows held against one card: all of them
+# On the card every f32 step is held at TRAIN_LOSS_RTOL (full width, the
+# first call: zamba2 at most 5.5e-6, xlstm 8.4e-8). The rehearsal's smoke
+# widths amplify f32 noise more: a 12-layer smoke zamba2's f32 gradients
+# lie up to 3e-4 (relative, by leaf) from their float64 values, split or
+# not (`tests/test_torch_split_ssm.py` holds the split gradient to the
+# unsplit one), Adam's first update turns that noise on near-zero
+# elements into changes of up to lr, and its steps 2 and 3 lie 5e-6 and
+# 6e-4 from one card's; there the later steps are held at the leaf-change
+# bound of the split tests
+SSM_DRIFT_RTOL = 1e-2
+
+
+def state_leaves(cache, leaf=lambda node: hasattr(node, "element_size")):
+    """path → leaf of every tensor leaf of a decode cache (of every `leaf`
+    of a tree in its structure, as `cache_specs` gives)."""
+    out = {}
+
+    def walk(node, path):
+        if leaf(node):
+            out[path] = node
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}.{k}" if path else k)
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{path}.{i}")
+    walk(cache, "")
+    return out
+
+
+def state_bytes(cache):
+    return sum(t.numel() * t.element_size() for t in state_leaves(cache).values())
+
+
+def plan_state_bytes(cfg, rows, slots, layout):
+    """The bytes of a decode cache of `rows` x `slots` a rank of `layout`
+    holds on the split plan, and `cache_specs`' arithmetic of the same: the
+    two part only where ROADMAP §3 records it (Mamba2's conv holds the
+    rank's x channels and B and C whole, against the specs' block of
+    (d + 2N) / m channels; an sLSTM state the rank's rows and d / m
+    channels, against the specs' whole c and n, m by rows)."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import build
+    whole = build(cfg, device="meta").init_cache(rows, slots)
+    shape = dict(layout.mesh.shape)
+    specs = state_leaves(sh.cache_specs(whole, layout.batch_axes, shape),
+                         lambda node: isinstance(node, sh.P))
+    m = shape.get("model", 1)
+    mine = rows // layout.batch_shards
+    held = by_specs = 0
+    for path, t in state_leaves(whole).items():
+        n = t.numel() * t.element_size() // math.prod(sh._axis_size(e, shape)
+                                                      for e in specs[path])
+        by_specs += n
+        if path.startswith("ssm.") and path.endswith(".conv") and m > 1:
+            n = mine * (cfg.conv_width - 1) * (cfg.d_model // m + 2 * cfg.ssm_state) \
+                * t.element_size()
+        elif path.startswith("slstm.") and m > 1:
+            n = mine * cfg.d_model // m * t.element_size()
+        held += n
+    return held, by_specs
+
+
+def ssm_refs(model, prompt, toks, seed, run, on_card, impl):
+    """A prefill of `prompt` (its last-token logits, `impl`, timed) and
+    decode logits [steps, rows, V] of `toks`' rows over `run`'s cache: the
+    KV caches (zamba2's shared-attention sites; the rows' and, placed, the
+    rank's slots) filled by `fill_cache` to `at` slots, the recurrent
+    states zero. Returns (prefill logits, decode logits, prefill s, ms a
+    decode step, the cache's bytes)."""
+    import torch
+    slots, at = run["slots"], run["at"]
+    plan = model.net.plan
+    lo = plan.cache_slots(slots)[0] if plan is not None else 0
+    with torch.inference_mode():
+        sync(on_card)
+        t = time.perf_counter()
+        pre, _ = model({"tokens": prompt}, impl=impl, last_only=True)
+        sync(on_card)
+        prefill_s = time.perf_counter() - t
+        cache = model.init_cache(toks.shape[0], slots)
+        if "kv" in cache:
+            fill_cache(cache, seed, range(run["rows_lo"], run["rows_lo"] + toks.shape[0]), lo,
+                       slots, at)
+        held = state_bytes(cache)
+        dec, secs = timed_decode(model, toks, cache, at, on_card)
+        del cache
+    return pre, dec, prefill_s, [1e3 * x for x in secs], held
+
+
+def ssm_serve_run(label, cfg, specs, run, seq, seed, on_card, dev, check_rows, chunk,
+                  problems):
+    """The split prefill and decode of `cfg` (seeded, in its dtype) on each
+    mesh of `specs`, against one card: rank 0 first runs one card's
+    prefill of one seeded prompt of `seq` tokens and its decode of rows
+    [0, check_rows) of `run`'s cache (`ssm_refs`) and broadcasts the
+    logits; then for each mesh the model is built again, placed (each
+    rank keeps its blocks) and runs the same: a warm-up prefill (on the
+    card its flash calls, the first of each shape, held against
+    attention_ref in blocks), the timed prefill counting flash launches,
+    the decode (each rank its rows, its block of the KV cache and its
+    heads or channels of the recurrent states). Held: the logits finite,
+    equal on the ranks that hold the same rows; in f32 within
+    F32_LOGIT_ATOL of one card's (bf16: printed); every rank's cache
+    bytes the plan's (`plan_state_bytes`); on the card one flash launch a
+    shared-attention site. A failed check is added to `problems`. Rank 0
+    prints each mesh's record (`label`). Returns (the records, the last
+    placed model, its layout, each parameter's whole (numel, element
+    size))."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.models import build
+    world, rank = tdist.get_world_size(), tdist.get_rank()
+    rows_all, steps = run["rows"], run["steps"]
+    f32 = cfg.dtype == "float32"
+    impl = "ref" if f32 else "kernel"
+    prompt = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (1, seq))).to(dev)
+    toks = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab, (rows_all, steps))).to(dev)
+    v = cfg.vocab_padded
+    want = {"pre": torch.empty((1, 1, v), dtype=torch.float32, device=dev),
+            "dec": torch.empty((steps, check_rows, v), dtype=torch.float32, device=dev)}
+    one_card = {}
+    model = build(cfg, device=dev, seed=seed)
+    if rank == 0:
+        want["pre"], want["dec"], one_card["prefill_s"], one_card["ms_per_step"], _ = ssm_refs(
+            model, prompt, toks[:check_rows], seed, dict(run, rows_lo=0), on_card, impl)
+        one_card["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None
+    for t in want.values():
+        tdist.broadcast(t, src=0)
+    infos, sites = [], flash_calls(cfg)
+    for i, spec in enumerate(specs):
+        if i:
+            del model, layout
+            if on_card:
+                torch.cuda.empty_cache()
+            model = build(cfg, device=dev, seed=seed)
+        whole = {n: (p.numel(), p.element_size()) for n, p in model.net.named_parameters()}
+        layout = place_split(model, spec, dev, rows_all)
+        plan = model.net.plan
+        held_params = sum(p.numel() * p.element_size() for p in model.parameters())
+        rows = layout.rows(rows_all)
+        if on_card:
+            torch.cuda.empty_cache()
+        held_rows = []
+        with torch.inference_mode():
+            if impl == "kernel":
+                with each_flash_call_held(held_rows, chunk, first_of_each_shape=True):
+                    model({"tokens": prompt}, impl=impl, last_only=True)
+            else:
+                model({"tokens": prompt}, impl=impl, last_only=True)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        flash_attention.launches = 0
+        got = {}
+        got["pre"], got["dec"], prefill_s, ms, held_cache = ssm_refs(
+            model, prompt, toks[rows], seed, dict(run, rows_lo=rows.start), on_card, impl)
+        launches = flash_attention.launches
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None
+        if held_rows:
+            held_calls_agree(cfg, "tp-ssm", held_rows)
+        first = got["pre"].clone()
+        tdist.broadcast(first, src=0)
+        every = [torch.empty_like(got["dec"]) for _ in range(world)]
+        tdist.all_gather(every, got["dec"].contiguous())
+        plan_cache, specs_cache = plan_state_bytes(cfg, rows_all, run["slots"], layout)
+        shared = range(rows.start, min(rows.stop, check_rows))
+        err = {"pre": float((got["pre"] - want["pre"]).abs().max())}
+        if len(shared):
+            err["dec"] = float((got["dec"][:, :len(shared)]
+                                - want["dec"][:, shared.start:shared.stop]).abs().max())
+        info = dict(model=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, mesh=spec,
+                    card=smi_line(on_card), plan={k: getattr(plan, k) for k in (
+                        "mamba_heads", "mlstm_heads", "channels", "q")},
+                    params_gb_a_rank=held_params / 1e9, prefill_tokens=seq, prefill_s=prefill_s,
+                    tokens_per_s=seq / prefill_s, flash_launches=launches,
+                    flash_calls_held=held_rows, decode_rows=rows_all, slots=run["slots"],
+                    filled=run["at"], decode_ms_per_step=ms, cache_gb_a_rank=held_cache / 1e9,
+                    plan_cache_gb_a_rank=plan_cache / 1e9,
+                    specs_cache_gb_a_rank=specs_cache / 1e9, peak_gb=peak,
+                    vs_one_card_rows=check_rows, vs_one_card_max_abs=err, one_card=one_card,
+                    logit_max_abs=float(want["pre"].abs().max()))
+        ranks = [None] * world
+        tdist.all_gather_object(ranks, dict(prefill_s=prefill_s, ms=ms, peak_gb=peak,
+                                            rows=[rows.start, rows.stop]))
+        info["by_rank"] = ranks
+        shower(rank)(dict(tp_ssm=label, **info))
+        for k in ("pre", "dec"):
+            if not bool(torch.isfinite(got[k]).all()):
+                problems.append(f"tp-ssm {cfg.name} {spec} {k}: non-finite logits")
+        if not torch.equal(got["pre"], first):
+            problems.append(f"tp-ssm {cfg.name} {spec}: rank {rank}'s prefill logits differ "
+                            "from rank 0's")
+        for other, theirs in zip(ranks, every):
+            if other["rows"] == [rows.start, rows.stop] and not torch.equal(theirs, got["dec"]):
+                problems.append(f"tp-ssm {cfg.name} {spec}: rank {rank}'s decode logits differ "
+                                "from a rank with its rows")
+        if f32:
+            for k, e in err.items():
+                if not e <= F32_LOGIT_ATOL:
+                    problems.append(f"tp-ssm {cfg.name} {spec}: split vs one-card {k} logits "
+                                    f"max abs diff {e} > {F32_LOGIT_ATOL}")
+        if held_cache != plan_cache:
+            problems.append(f"tp-ssm {cfg.name} {spec}: rank {rank} holds {held_cache} cache "
+                            f"bytes, the plan's arithmetic says {plan_cache}")
+        if on_card and impl == "kernel" and launches != sites:
+            problems.append(f"tp-ssm {cfg.name} {spec}: {launches} flash launches in the "
+                            f"prefill, want {sites}")
+        infos.append(info)
+        del got, first, every
+    del want
+    if on_card:
+        torch.cuda.empty_cache()
+    return infos, model, layout, whole
+
+
+def tp_ssm_phase(seed, on_card):
+    """Phase 24, inside `process_group`: the recurrent families on the
+    split plan (each rank its Mamba2 or mLSTM heads, its sLSTM channels,
+    zamba2's shared-attention heads and ff columns, its vocab rows over
+    "model"; one layer gathered over "data" at a time), seeded, at four
+    ranks (smoke sizes in the rehearsal):
+
+      f32, full width, cut depth (SSM_LAYERS: zamba2 12 layers, two
+      shared-attention sites; xlstm 7, 6 mLSTM and 1 sLSTM), on (2, 2)
+      and on (1, 4): 3 train steps of 8 x 2,048 tokens (xlstm 8 x 512) in
+      2 microbatches, the specs' bytes held, every step's loss within
+      TRAIN_LOSS_RTOL (1e-4, relative) of rank 0's one-card run of the
+      same global batch in as many microbatches as the mesh's "data"
+      ranks run (the rehearsal's later steps within SSM_DRIFT_RTOL, 1e-2);
+      a prefill of 2,048 tokens (plain attention) and 4 decode
+      steps of 8 rows over 4,096 slots filled to 4,088, the logits within
+      F32_LOGIT_ATOL (1e-3, absolute) of one card's (`ssm_serve_run`);
+      full size, bf16, on (1, 4): zamba2 a 32,768-token prefill (flash
+      on each rank's 8 heads of 64 at each of the 6 shared-attention
+      sites: 6 launches a rank, the first call held against
+      attention_ref in blocks) and 4 decode steps over 8 rows x 32,768
+      slots filled to 32,760, against one card's prefill and rows 0 and
+      1 (printed: random bf16 weights, phase 15); xlstm a 4,096-token
+      prefill (phase 15's cut) and the same decode; then each 3 train
+      steps of 4 x 2,048 tokens (xlstm 4 x 512) in 2 microbatches, the
+      specs' bytes held, s a step and the peak printed.
+
+    Every cache's bytes are the plan's (`plan_state_bytes`). Every part
+    runs; the phase then fails if a check did. Returns rank 0's records
+    and the flash launches."""
+    import dataclasses
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs import ARCHS
+    from repro_torch.train import init_state
+    world, rank = tdist.get_world_size(), tdist.get_rank()
+    if world != 4:
+        fail(f"tp-ssm runs on 4 ranks, not {world}")
+    dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))) if on_card else "cpu"
+    show = shower(rank)
+    chunk = PLAIN_CHUNK if on_card else 64
+    if on_card:        # every rank builds before the first collective, not inside one
+        from repro_torch.kernels import _build
+        _build.build_all(["flash_attention"])
+    f32_run = dict(F32_RUN if on_card else F32_REHEARSAL, rows=8, steps=4)
+    run = DECODE_RUN if on_card else DECODE_REHEARSAL
+    out, launches, problems = {}, 0, []
+    for arch in SSM_ARCHS:
+        full = ARCHS[arch] if on_card else ARCHS[arch].smoke()
+        knobs = (SSM_RUN if on_card else SSM_REHEARSAL)[arch]
+        cut = dataclasses.replace(full, n_layers=SSM_LAYERS[arch], dtype="float32")
+        # f32, cut depth: training on (2, 2) and (1, 4) against one card
+        meshes, one_card = {}, {}
+        for spec in ("2,2", "1,4"):
+            mb = knobs["microbatches"] * int(spec.split(",")[0])
+            r = moe_mesh_run(cut, spec, knobs, seed, on_card, dev)
+            if mb not in one_card:
+                one_card[mb] = moe_one_card_losses(cut, knobs, mb, seed, dev, on_card)
+            r.update(one_card_losses=one_card[mb])
+            r["apart"] = [abs(x - w) / abs(w) for x, w in zip(r["losses"], one_card[mb])]
+            meshes[spec] = r
+            if r["held_bytes"] != r["spec_bytes"] or not all(map(math.isfinite, r["losses"])):
+                problems.append(f"tp-ssm {arch} {spec} f32: rank {rank} holds {r['held_bytes']} "
+                                f"bytes (the specs give {r['spec_bytes']}), losses {r['losses']}")
+            later = TRAIN_LOSS_RTOL if on_card else SSM_DRIFT_RTOL
+            if not (r["apart"][0] <= TRAIN_LOSS_RTOL
+                    and all(a <= later for a in r["apart"][1:])):
+                problems.append(f"tp-ssm {arch} {spec} f32: losses {r['losses']} vs one card's "
+                                f"{one_card[mb]}")
+        every = [None] * world
+        tdist.all_gather_object(every, {k: v["step_s"] for k, v in meshes.items()})
+        rec = dict(model=full.name, layers=cut.n_layers, card=smi_line(on_card),
+                   seq=knobs["seq"], global_batch=knobs["global_batch"],
+                   microbatches=knobs["microbatches"], runs=meshes, step_s_by_rank=every)
+        show(dict(tp_ssm=f"{arch} f32 meshes", **rec))
+        serve, model, layout, _ = ssm_serve_run(
+            f"{arch} f32 serve", cut, ("2,2", "1,4"), f32_run, f32_run["tokens"], seed, on_card,
+            dev, SSM_F32_CHECK_ROWS, chunk, problems)
+        del model, layout
+        out[arch] = dict(f32_meshes=rec, f32_serve=serve)
+        if on_card:
+            torch.cuda.empty_cache()
+        # full size, bf16, on (1, 4): prefill, decode, then training
+        seq = SSM_PREFILL[arch] if on_card else 128
+        (info,), model, layout, whole = ssm_serve_run(
+            f"{arch} full size", full, (f"1,{world}",), run, seq, seed, on_card, dev,
+            DECODE_CHECK_ROWS, chunk, problems)
+        launches += info["flash_launches"]
+        fk = SSM_FULL_TRAIN[arch] if on_card else dict(knobs, global_batch=4)
+        state = init_state(model)
+        state.layout = layout
+        trained = moe_train_steps(model, state, full, fk, dev, on_card)
+        trained.update(spec_bytes=spec_bytes(whole, layout), seq=fk["seq"],
+                       global_batch=fk["global_batch"], microbatches=fk["microbatches"],
+                       whole_state_gb=sum(n * (s + 8) for n, s in whole.values()) / 1e9)
+        every = [None] * world
+        tdist.all_gather_object(every, dict(step_s=trained["step_s"], peak_gb=trained["peak_gb"]))
+        trained["by_rank"] = every
+        info["train"] = trained
+        out[arch]["full"] = info
+        show(dict(tp_ssm=f"{arch} full size: train", card=smi_line(on_card), **trained))
+        if trained["held_bytes"] != trained["spec_bytes"] or not all(
+                map(math.isfinite, trained["losses"])):
+            problems.append(f"tp-ssm {arch} full size: rank {rank} holds {trained['held_bytes']} "
+                            f"bytes (the specs give {trained['spec_bytes']}), losses "
+                            f"{trained['losses']}")
+        del model, state, layout
+        if on_card:
+            torch.cuda.empty_cache()
+    entry = None
+    if on_card and rank == 0:      # flash at zamba2's shape a rank: 8 heads, 32K, D 64
+        from repro_torch.kernels.flash_attention.kernel import flash_attention
+        cfg = ARCHS[SSM_ARCHS[0]]
+        heads, seq = cfg.n_heads // world, SSM_PREFILL[SSM_ARCHS[0]]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        q, k, v = (torch.randn((heads, seq, cfg.hd), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        held = out[SSM_ARCHS[0]]["full"]["flash_calls_held"]
+        entry = flash_entry(q, k, v, flash_attention(q, k, v, causal=True), chunk,
+                            max(r["max_abs_err"] for r in held))
+        del q, k, v
+    tdist.barrier()
+    if problems:
+        fail("; ".join(problems))
+    return dict(out, launches=launches, flash=entry)
+
+# --------------------------------------------------------------------------
 # offline: edge-list I/O, the analysis CLI, the census against the dry run
 # --------------------------------------------------------------------------
 
@@ -4152,15 +4540,16 @@ def dry_run_of(arch, full, layers, world, mesh, seq, global_batch, microbatches)
 
 
 def dist_only(args, on_card):
-    """Phases 16, 17, 19, 21, 22 and 23 alone (`--dist-only train`: phase
-    19 alone; `--dist-only tp`: phase 21 alone; `--dist-only decode`:
-    phase 22 alone; `--dist-only moe`: phase 23 alone, which needs 4
-    ranks and is skipped by a bare `--dist-only` at another count): every
-    rank builds rmat(--scale) on its card (cuda:LOCAL_RANK under torchrun)
-    and its cuda results, then runs the phases over all ranks in one
-    process group. On the card rank 0 prints a {"kernels": [...]} line of
-    flash_attention.bf16 with the launches of phases 21 and 23 when either
-    ran."""
+    """Phases 16, 17, 19, 21, 22, 23 and 24 alone (`--dist-only train`:
+    phase 19 alone; `--dist-only tp`: phase 21 alone; `--dist-only
+    decode`: phase 22 alone; `--dist-only moe`: phase 23 alone;
+    `--dist-only ssm`: phase 24 alone; 23 and 24 need 4 ranks and are
+    skipped by a bare `--dist-only` at another count): every rank builds
+    rmat(--scale) on its card (cuda:LOCAL_RANK under torchrun) and its
+    cuda results, then runs the phases over all ranks in one process
+    group. On the card rank 0 prints a {"kernels": [...]} line of
+    flash_attention.bf16 with the launches of phases 21, 23 and 24 when
+    any ran."""
     import torch
     from repro_torch.graph import rmat
     t0 = time.perf_counter()
@@ -4224,12 +4613,28 @@ def dist_only(args, on_card):
                   f"{moe['wide']['experts_a_rank']} experts a rank; == one card")
         elif args.dist_only == "all":
             phase("tp-moe", time.perf_counter(), f"skipped: it runs on 4 ranks, not {ranks}")
+        ssm = None
+        if args.dist_only == "ssm" or (args.dist_only == "all" and ranks == "4"):
+            t0 = time.perf_counter()
+            ssm = tp_ssm_phase(args.seed, on_card)
+            z, x = (ssm[a]["full"] for a in SSM_ARCHS)
+            phase("tp-ssm", t0, f"ranks {ranks}: zamba2-1.2b and xlstm-1.3b f32 on (2, 2) and "
+                  f"(1, 4) == one card; at full size on (1, 4) zamba2 prefill "
+                  f"{z['prefill_s']:.3f} s ({z['flash_launches']} flash launches), decode "
+                  f"{statistics.mean(z['decode_ms_per_step'][1:]):.1f} ms a step, train "
+                  f"{statistics.mean(z['train']['step_s'][1:]):.3f} s a step; xlstm prefill "
+                  f"{x['prefill_s']:.3f} s, decode "
+                  f"{statistics.mean(x['decode_ms_per_step'][1:]):.1f} ms, train "
+                  f"{statistics.mean(x['train']['step_s'][1:]):.3f} s")
+        elif args.dist_only == "all":
+            phase("tp-ssm", time.perf_counter(), f"skipped: it runs on 4 ranks, not {ranks}")
     if int(os.environ.get("RANK", 0)) == 0:
         flash = tp["flash"] if tp is not None else None
-        if moe is not None and moe["flash"] is not None:
-            if flash is None:
-                flash = moe["flash"]
-            flash["launches"] += moe["launches"]
+        for other in (moe, ssm):
+            if other is not None and other["flash"] is not None:
+                if flash is None:
+                    flash = other["flash"]
+                flash["launches"] += other["launches"]
         if flash is not None:
             print(json.dumps({"kernels": [flash]}))
         print("dist-only run finished: not a smoke run")
@@ -4244,11 +4649,11 @@ def main(argv=None):
     ap.add_argument("--trace", action="store_true",
                     help="profile one more call of each cuda run (phase 7)")
     ap.add_argument("--dist-only", nargs="?", const="all",
-                    choices=("all", "train", "tp", "decode", "moe"),
-                    help="the graph, its cuda results and phases 16, 17, 19, 21, 22 and 23 "
+                    choices=("all", "train", "tp", "decode", "moe", "ssm"),
+                    help="the graph, its cuda results and phases 16, 17, 19, 21, 22, 23 and 24 "
                          "alone ('train': phase 19 alone, 'tp': phase 21 alone, 'decode': phase "
-                         "22 alone, 'moe': phase 23 alone; under torchrun: one rank a card); "
-                         "not a smoke run")
+                         "22 alone, 'moe': phase 23 alone, 'ssm': phase 24 alone; under "
+                         "torchrun: one rank a card); not a smoke run")
     args = ap.parse_args(argv)
     on_card = args.device == "cuda"
 

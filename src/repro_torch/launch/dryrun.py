@@ -25,32 +25,35 @@ the layout gives the model (`Layout.plan_for`; the record's "plan"):
               outside them multiplies matrices. On the "gathered" plan the
               collectives run once a step (the gathers at its start, the
               gradients' reduce-scatter and the norm's all-reduce at its
-              end) and are not scaled. On the "split" plan (the dense
-              and MoE families) each microbatch gathers every layer over
-              "data" (one all-gather a layer and dtype, twice under
-              remat), reduces its heads', ff columns' and experts'
-              products over "model" and reduce-scatters its gradients, so
+              end) and are not scaled. On the "split" plan (the dense,
+              MoE, hybrid and xLSTM families) each microbatch gathers
+              every layer over "data" (one all-gather a layer and dtype,
+              twice under remat), reduces its heads', ff columns',
+              experts' and channels' products over "model" and
+              reduce-scatters its gradients, so
               a cell of more than two microbatches is also counted with
               one: the difference is one microbatch's collectives, and the
               rest runs once a step;
   * prefill — the forward with `last_only` over this rank's rows
               (`impl="chunked"`): on the split plan its heads, ff columns
-              (or experts) and vocab block, each layer gathered over
-              "data" as it runs; on the gathered plan the parameters
-              gathered whole first;
+              (or experts, or recurrent heads and channels) and vocab
+              block, each layer gathered over "data" as it runs; on the
+              gathered plan the parameters gathered whole first;
   * decode  — one `decode_step` of this rank's rows against
               `init_cache` of them: on the split plan its heads, ff
-              columns (or experts) and vocab block, each layer gathered
-              over "data" as it runs, and its block of the cache (the
-              sequence over "model", as `sharding.cache_specs` splits
-              it); on the gathered plan the parameters gathered whole
-              first and the whole sequence.
+              columns (or experts, or recurrent heads and channels) and
+              vocab block, each layer gathered over "data" as it runs,
+              and its block of the cache (the KV sequence over "model",
+              as `sharding.cache_specs` splits it; a recurrent state's
+              heads or channels); on the gathered plan the parameters
+              gathered whole first and the whole sequence.
 
 On the split plan a rank holds one layer whole at most (its block of the
-experts, in an MoE layer), and computes its share of the heads, ff
-columns, experts and vocab; on the gathered plan (the hybrid, xLSTM and
-enc-dec families) every parameter is in its peak and its collective
-bytes, and the "model" ranks repeat one another's work. The kernels of
+experts, in an MoE layer; a Mamba2 layer's in_proj and conv_w, an sLSTM
+layer's wo), and computes its share of the heads, ff columns, experts,
+recurrent channels and vocab; on the gathered plan (the enc-dec family)
+every parameter is in its peak and its collective bytes, and the "model"
+ranks repeat one another's work. The kernels of
 the port launch through ctypes and are invisible to the census, so every
 program runs the plain "chunked" attention, as the reference's dry run
 does.

@@ -25,25 +25,27 @@ How a rank computes with its blocks is the layout's plan
 (`Layout.plan_for`), what GSPMD derives from the same specs in the
 reference:
 
-  * "split" (the dense and MoE families, `SplitPlan`): each rank runs its
-    block of query heads, of ff columns, of experts (an MoE layer's
-    [E, ...] leaves, E/m a rank; its shared experts' ff columns) and of
-    vocab rows over "model" and its rows of the batch over the batch
-    axes; each layer's weights are gathered over "data" when the layer
-    runs, in one all-gather a dtype (inside its remat, so the recompute
-    gathers again), and freed after it, and each gradient is
-    reduce-scattered into the rank's block by the backward of that gather
+  * "split" (the dense, MoE, hybrid and xLSTM families, `SplitPlan`):
+    each rank runs its block of query heads, of ff columns, of experts
+    (an MoE layer's [E, ...] leaves, E/m a rank; its shared experts' ff
+    columns), of Mamba2 and mLSTM heads, of sLSTM channels and of vocab
+    rows over "model" and its rows of the batch over the batch axes; each
+    layer's weights are gathered over "data" when the layer runs, in one
+    all-gather a dtype (inside its remat, so the recompute gathers
+    again), and freed after it, and each gradient is reduce-scattered
+    into the rank's block by the backward of that gather
     (`launch.parallel`). A leaf the guard replicated over "model" is
     computed replicated. Decode runs it too: the rank holds its block of
     the KV cache by `cache_specs` (its rows, and its block of the
     sequence over "model"), and attention combines the ranks' blocks in a
-    softmax across "model" (`models.attention.split_attention_decode`).
-  * "gathered" (the hybrid, xLSTM and enc-dec families): the step gathers
-    every parameter whole over the axes that split it, runs this rank's
-    rows, reduce-scatters each gradient into this rank's block
+    softmax across "model" (`models.attention.split_attention_decode`);
+    a recurrent state holds the rank's heads or channels.
+  * "gathered" (the enc-dec family): the step gathers every parameter
+    whole over the axes that split it, runs this rank's rows,
+    reduce-scatters each gradient into this rank's block
     (`reduce_grads`) and updates its blocks. Every rank of a "model"
     group then computes the same rows, and its peak holds the whole
-    model (ROADMAP item 15d).
+    model (ROADMAP item 15d-ii).
 
 The collectives are hand-written over the mesh's per-axis sub-groups.
 """
@@ -68,7 +70,7 @@ _IN_OUT = {"wq", "wk", "wv", "wz", "wi", "wf", "wo_gate", "in_proj",
 _OUT_IN = {"wo", "out", "out_proj", "w_down"}   # [X, d] → P(model, data)
 _STACKED = set(STACKED)
 _ONE = Mesh1D(group=None, size=1, rank=0, device=None)     # an axis of one rank: no collective
-SPLIT_FAMILIES = ("dense", "moe")      # the families a rank computes on the split plan
+SPLIT_FAMILIES = ("dense", "moe", "hybrid", "ssm")  # the families a rank computes split
 
 
 class P(tuple):
@@ -243,8 +245,9 @@ class Layout:
         return self._plan or ("split" if cfg.family in SPLIT_FAMILIES else "gathered")
 
     def split_plan(self, cfg, params: dict) -> "SplitPlan":
-        """The split plan of a dense or MoE model of `cfg` with parameters
-        `params` (name → parameter, holding this rank's blocks)."""
+        """The split plan of a model of `cfg` (a family of
+        `SPLIT_FAMILIES`) with parameters `params` (name → parameter,
+        holding this rank's blocks)."""
         return SplitPlan(self, cfg, params)
 
     def axis(self, name) -> Mesh1D:
@@ -435,7 +438,7 @@ def held_bytes(state) -> int:
 
 
 # --------------------------------------------------------------------------
-# the split plan: how a rank of a dense or MoE model computes with its blocks
+# the split plan: how a rank of a model computes with its blocks
 # --------------------------------------------------------------------------
 
 def _kv_heads(cfg, lo, hi):
@@ -453,9 +456,9 @@ def _kv_heads(cfg, lo, hi):
 
 
 class SplitPlan:
-    """The compute plan of a dense or MoE model on a `Layout` (the
-    counterpart of what GSPMD derives from the reference's specs and its
-    activation constraints), leaf by leaf:
+    """The compute plan of a model on a `Layout` (the counterpart of what
+    GSPMD derives from the reference's specs and its activation
+    constraints), leaf by leaf:
 
       wq, bq          column split: the rank's query heads [lo, hi) of
                       H, H·r//m to H·(r+1)//m on "model" rank r of m
@@ -478,6 +481,26 @@ class SplitPlan:
                       rank's block of their ff columns, its partial
                       product joining the experts' before one
                       `reduce_from` in f32 (`models.moe.moe_ffn`);
+      Mamba2          the rank's heads [Hs·r/m, Hs·(r+1)/m) of Hs = d / P
+                      (`mamba2_weights`) and their channels: in_proj and
+                      conv_w gathered over "model" and sliced to its z, x
+                      and dt columns and the B and C columns whole (each
+                      rank's part of their gradient adds in the gather's
+                      reduce-scatter); a_log, dt_bias, d_skip its heads
+                      through `copy_to`; out_proj its own rows, then
+                      `reduce_from`; the norm over d a split RMSNorm
+                      (`_split_norm`);
+      mLSTM           the rank's heads of H: wq, wk, wv, wo_gate, wf, wi
+                      its own column blocks, out its own rows, then
+                      `reduce_from`; the norm over H·hd a split RMSNorm
+                      (`mlstm_weights`);
+      sLSTM           the rank's channels [d·r/m, d·(r+1)/m): wz, wi, wf
+                      its own column blocks; wo (whose spec splits its
+                      rows, by its name) gathered over "model" and sliced
+                      to its columns; out its own rows, then
+                      `reduce_from`; the norm a split RMSNorm; no
+                      collective inside the per-token loop
+                      (`slstm_weights`);
       embed / unembed vocab split: `vocab_embed` on the rank's vocab rows
                       and the logits of its vocab block
                       (`vocab_cross_entropy`; `gather_vocab` for whole
@@ -486,18 +509,27 @@ class SplitPlan:
       KV cache        the rank's rows of the batch, and its slots
                       [S·r/m, S·(r+1)/m) of a cache of S slots where m
                       divides S, else all S (`cache_slots`: the rule of
-                      `cache_specs`, guard included).
+                      `cache_specs`, guard included);
+      recurrent state the rank's rows and: Mamba2's h its heads and conv
+                      its x channels with B and C whole; mLSTM's h its
+                      heads, m and n whole; sLSTM's c, n, m its channels
+                      (`models.transformer.Transformer.init_cache`; where
+                      they part from `cache_specs` is ROADMAP §3's
+                      deliberate differences).
 
-    A replicated leaf used as a slice (bq to bv) passes `copy_to` first, so
-    its slices' gradients add into the whole leaf over "model". A group
-    (the heads, the ff columns, the experts, the shared experts' columns,
-    the vocab) whose leaves the guard put back to replication over
-    "model", or whose heads are fewer than the "model" ranks, is computed
+    A replicated leaf used as a slice (bq to bv, a_log to d_skip, a split
+    norm's scale) passes `copy_to` first, so its slices' gradients add
+    into the whole leaf over "model". A group (the heads, the ff columns,
+    the experts, the shared experts' columns, the vocab, a recurrent
+    layer's heads or channels) whose leaves the guard put back to
+    replication over "model", or whose heads are fewer than the "model"
+    ranks or not a multiple of them (a recurrent layer's), is computed
     replicated: its leaves whole, no collective over "model". Before any
     of that a leaf split over "data" is gathered over "data", a layer's
     leaves in one all-gather a dtype (`gather_layer`), the backward
     summing each gradient into the rank's block when "data" splits the
-    batch.
+    batch. The hybrid family's shared attention block runs the dense
+    rows above at every call site, gathered over "data" at each.
 
     Every rank of an axis makes the same collectives in the same order:
     which leaves are gathered follows from the config and the mesh, never
@@ -522,8 +554,9 @@ class SplitPlan:
             return n * r // m, n * (r + 1) // m
 
         h, hkv, ff = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
-        self.heads = split("layers.0.attn.wq", 1) and h >= m
-        self.ff = split("layers.0.mlp.w_gate", 1)
+        dense = "shared_attn" if cfg.family == "hybrid" else "layers.0"   # attention and MLP
+        self.heads = split(f"{dense}.attn.wq", 1) and h >= m
+        self.ff = split(f"{dense}.mlp.w_gate", 1)
         self.vocab = split("embed", 0)
         self.q, self.kv = (0, h), (0, hkv)
         self.own_q = self.own_kv = False
@@ -551,6 +584,14 @@ class SplitPlan:
                                  "group, or unevenly; the split plan cannot run its MoE layers")
         self.e = block(e) if self.experts else (0, e)
         self.sf = block(sff) if self.shared else (0, sff)
+        # the recurrent layers: Mamba2 heads, mLSTM heads, sLSTM channels
+        hs = cfg.d_model // cfg.ssm_head_dim
+        self.mamba = split("layers.0.out_proj", 0) and hs % m == 0
+        self.mamba_heads = block(hs) if self.mamba else (0, hs)
+        self.mlstm = split("mlstm.0.out", 0) and h % m == 0
+        self.mlstm_heads = block(h) if self.mlstm else (0, h)
+        self.slstm = split("slstm.0.out", 0)
+        self.channels = block(cfg.d_model) if self.slstm else (0, cfg.d_model)
 
     # -- leaves ----------------------------------------------------------------
     def _data_dim(self, p):
@@ -591,6 +632,13 @@ class SplitPlan:
             return t
         t = copy_to(t, self.model) if mdim is None else gather_over(t, self.model, mdim)
         return t.narrow(dim, lo, hi - lo)
+
+    def _parts(self, p, dim, ranges):
+        """The slices `ranges` [(lo, hi), ...] along `dim` of leaf `p`
+        whole over "model", joined in order: one gather (or `copy_to`) for
+        all of them, whose backward adds the ranks' parts of the gradient."""
+        t = self._take(p, dim, 0, self.layout.full_shape(self.names[id(p)], p)[dim])
+        return torch.cat([t.narrow(dim, lo, hi - lo) for lo, hi in ranges], dim=dim)
 
     def attention_weights(self, attn, all_kv=False):
         """The rank's weights of an `Attention` block, in its attribute names
@@ -662,6 +710,85 @@ class SplitPlan:
             router=self._take(moe.router), experts=self.experts, e=self.e,
             shared=None if shared is None else self._columns(shared, self.shared, self.sf),
             shared_split=self.shared, **w)
+
+    # -- the recurrent layers ----------------------------------------------------
+    def _split_norm(self, norm, lo, hi):
+        """An RMSNorm over a width split over "model", applied to the
+        rank's channels [lo, hi) of it: the f32 sum of squares of the
+        rank's channels summed over "model" (all-reduced forward and, since
+        every rank normalises its own channels by it, backward), divided
+        by the whole width; the scale's slice taken through `copy_to`."""
+        width = norm.scale.shape[0]
+        scale = self._take(norm.scale, 0, lo, hi)
+        model = self.model
+
+        def apply(x, eps=1e-5):
+            xf = x.float()
+            sq = copy_to(reduce_from(torch.sum(xf * xf, dim=-1, keepdim=True), model), model)
+            out = xf * torch.rsqrt(sq / width + eps)
+            return (out * scale.float()).to(x.dtype)
+        return apply
+
+    def _whole(self, module, names, split):
+        return types.SimpleNamespace(split=split, norm=module.norm,
+                                     **{n: self._take(getattr(module, n)) for n in names})
+
+    def mamba2_weights(self, p):
+        """The rank's weights of a `Mamba2` block, in its attribute names
+        (`models.ssm.mamba2_block` takes the head count from a_log), with
+        `split`: in_proj's columns z, x of its heads' channels, B and C
+        whole and dt of its heads; conv_w's x channels and B, C; a_log,
+        dt_bias, d_skip of its heads; out_proj's rows of its channels; the
+        norm a split RMSNorm. Without `mamba` every leaf whole."""
+        names = ("in_proj", "conv_w", "a_log", "dt_bias", "d_skip", "out_proj")
+        if not self.mamba:
+            return self._whole(p, names, False)
+        cfg = self.cfg
+        d, n, pd = cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim
+        h0, h1 = self.mamba_heads
+        c0, c1 = h0 * pd, h1 * pd
+        dt = 2 * d + 2 * n
+        return types.SimpleNamespace(
+            split=True,
+            in_proj=self._parts(p.in_proj, 1, ((c0, c1), (d + c0, d + c1), (2 * d, dt),
+                                               (dt + h0, dt + h1))),
+            conv_w=self._parts(p.conv_w, 1, ((c0, c1), (d, d + 2 * n))),
+            a_log=self._take(p.a_log, 0, h0, h1), dt_bias=self._take(p.dt_bias, 0, h0, h1),
+            d_skip=self._take(p.d_skip, 0, h0, h1),
+            out_proj=self._take(p.out_proj, 0, c0, c1, True),
+            norm=self._split_norm(p.norm, c0, c1))
+
+    def mlstm_weights(self, p):
+        """The rank's weights of an `MLSTM` block (`models.ssm.mlstm_block`
+        takes the head count from wf), with `split`: its heads' columns of
+        wq, wk, wv, wo_gate, wf, wi, their rows of out, the norm a split
+        RMSNorm. Without `mlstm` every leaf whole."""
+        names = ("wq", "wk", "wv", "wf", "wi", "wo_gate", "out")
+        if not self.mlstm:
+            return self._whole(p, names, False)
+        h0, h1 = self.mlstm_heads
+        hd = self.cfg.hd
+        w = {n: self._take(getattr(p, n), 1, h0 * hd, h1 * hd, True)
+             for n in ("wq", "wk", "wv", "wo_gate")}
+        return types.SimpleNamespace(
+            split=True, wf=self._take(p.wf, 1, h0, h1, True), wi=self._take(p.wi, 1, h0, h1, True),
+            out=self._take(p.out, 0, h0 * hd, h1 * hd, True),
+            norm=self._split_norm(p.norm, h0 * hd, h1 * hd), **w)
+
+    def slstm_weights(self, p):
+        """The rank's weights of an `SLSTM` block (`models.ssm.slstm_block`
+        takes the channel count from wz), with `split`: its channels'
+        columns of wz, wi, wf and of wo (gathered over "model": its spec
+        splits the rows), their rows of out, the norm a split RMSNorm.
+        Without `slstm` every leaf whole."""
+        names = ("wz", "wi", "wf", "wo", "out")
+        if not self.slstm:
+            return self._whole(p, names, False)
+        lo, hi = self.channels
+        w = {n: self._take(getattr(p, n), 1, lo, hi, True) for n in ("wz", "wi", "wf")}
+        return types.SimpleNamespace(
+            split=True, wo=self._take(p.wo, 1, lo, hi), out=self._take(p.out, 0, lo, hi, True),
+            norm=self._split_norm(p.norm, lo, hi), **w)
 
     # -- the KV cache (decode) ---------------------------------------------------
     def cache_slots(self, max_len: int) -> tuple:

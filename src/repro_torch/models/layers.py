@@ -101,6 +101,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 # --- SwiGLU MLP ------------------------------------------------------------------
 
+class _Silu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        s = torch.reciprocal(1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (x * g) * (s * (1 - s))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """jax.nn.silu as the reference writes it, x · (1 / (1 + exp(-x))), one
     op at a time, so bf16 rounds after each op as the reference's ops do.
@@ -108,8 +121,10 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     to flip a near-tied MoE routing choice a layer later, and to move a
     Mamba2 stack's bf16 logits past the parity tests' bound. The MoE and
     Mamba2 blocks use this; the dense MLPs keep F.silu (one kernel where
-    this is five)."""
-    return x * torch.reciprocal(1 + torch.exp(-x))
+    this is five). Its gradient is jax's, g·s + (x·g)·(s·(1 - s)) with s
+    the sigmoid: autograd through the ops above would give 0·inf, NaN,
+    wherever exp(-x) overflows (x below -88)."""
+    return _Silu.apply(x)
 
 
 class MLP(nn.Module):

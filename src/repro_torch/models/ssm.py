@@ -12,6 +12,15 @@ inter-chunk scan (a Python loop over chunks here, the reference's
 `lax.scan`); `linear_attention_ref` is the sequential oracle. The sLSTM's
 per-token recurrence is a Python loop over tokens. Every f32 state and
 every dtype cast of the reference is kept, so bf16 rounds where it does.
+
+Under a split plan (`launch.sharding.SplitPlan`, installed by
+`Transformer.set_constraint_mesh`) each block takes `plan`: a rank runs
+its Mamba2 or mLSTM heads, or its sLSTM channels, through the plan's
+weights (`mamba2_weights`, `mlstm_weights`, `slstm_weights`), its input
+entered and its output summed over "model". The block functions take
+their head and channel counts from the weights they get, so the same
+code runs a whole block and a rank's share of one; a state holds what
+its weights compute.
 """
 from __future__ import annotations
 
@@ -43,7 +52,10 @@ def chunked_linear_attention(q, k, v, log_a, chunk: int):
     sc = torch.einsum("bcthn,bcshn->bchts", qc.float(), kc.float())
     decay = (cum[..., :, None, :] - cum[..., None, :, :]).permute(0, 1, 4, 2, 3)
     causal = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device).tril()
-    w = torch.where(causal, sc * torch.exp(decay), 0.0)
+    # the mask goes inside the exp: above the diagonal the decay is the
+    # positive sum of -log a over the span, whose exp overflows in f32 once
+    # it passes 88, and where(mask, sc·inf, 0) has a NaN gradient (0·inf)
+    w = sc * torch.exp(torch.where(causal, decay, -torch.inf))
     y_intra = torch.einsum("bchts,bcshp->bcthp", w.to(v.dtype), vc)
 
     # chunk summaries: S_c = Σ_t exp(total - cum_t) k_t ⊗ v_t
@@ -110,8 +122,12 @@ class Mamba2(nn.Module):
         self.out_proj = nn.Parameter(dense_init((d, d), dtype, generator=generator))
         self.norm = RMSNorm(d, dtype, dev)
 
-    def forward(self, x, cfg, chunk=None):
-        return mamba2_block(self, cfg, x, chunk)
+    def forward(self, x, cfg, chunk=None, plan=None):
+        if plan is None:
+            return mamba2_block(self, cfg, x, chunk)
+        plan = plan.gather_layer(self)
+        w = plan.mamba2_weights(self)
+        return plan.leave(mamba2_block(w, cfg, plan.enter(x, w.split), chunk), w.split)
 
 
 def _causal_conv(x, w):
@@ -125,20 +141,23 @@ def _causal_conv(x, w):
     return out
 
 
-def _split_in_proj(hin, cfg):
-    d, n = cfg.d_model, cfg.ssm_state
-    return torch.split(hin, [d, d, 2 * n, hin.shape[-1] - 2 * d - 2 * n], dim=-1)
+def _split_in_proj(hin, cfg, heads):
+    """z, x, B|C and dt of in_proj's product for `heads` heads."""
+    c, n = heads * cfg.ssm_head_dim, cfg.ssm_state
+    return torch.split(hin, [c, c, 2 * n, heads], dim=-1)
 
 
 def mamba2_block(p: Mamba2, cfg, x, chunk=None):
-    """x: [B,S,d] → [B,S,d] (the caller adds the residual)."""
-    b, s, d = x.shape
+    """x: [B,S,d] → [B,S,d] (the caller adds the residual); the heads
+    are those of `p`'s a_log, whose channels its norm and out_proj take."""
+    b, s, _ = x.shape
     n, pdim = cfg.ssm_state, cfg.ssm_head_dim
-    heads = d // pdim
+    heads = p.a_log.shape[0]
+    c = heads * pdim
     chunk = chunk or min(cfg.ssm_chunk, s)
-    z, xin, bc, dt = _split_in_proj(x @ p.in_proj, cfg)
+    z, xin, bc, dt = _split_in_proj(x @ p.in_proj, cfg, heads)
     conv_out = silu(_causal_conv(torch.cat([xin, bc], dim=-1), p.conv_w))
-    xin, bmat, cmat = torch.split(conv_out, [d, n, n], dim=-1)
+    xin, bmat, cmat = torch.split(conv_out, [c, n, n], dim=-1)
     dt = F.softplus(dt.float() + p.dt_bias)                       # [B,S,H] f32
     log_a = -torch.exp(p.a_log) * dt                              # [B,S,H]
     xh = xin.reshape(b, s, heads, pdim)
@@ -147,20 +166,28 @@ def mamba2_block(p: Mamba2, cfg, x, chunk=None):
     v = xh * dt[..., None].to(xh.dtype)
     y = _chunked_or_ref(q, k, v, log_a, chunk)
     y = y + p.d_skip[None, None, :, None] * xh.float()
-    y = y.reshape(b, s, d).to(x.dtype) * silu(z)
+    y = y.reshape(b, s, c).to(x.dtype) * silu(z)
     return p.norm(y, cfg.norm_eps) @ p.out_proj
 
 
-def mamba2_decode(p: Mamba2, cfg, x, state):
+def mamba2_decode(p: Mamba2, cfg, x, state, plan=None):
     """One-token decode. x: [B,1,d]; state: dict(h: [B,H,N,P] f32,
-    conv: [B,K-1,C]). Returns (out [B,1,d], new state)."""
-    b, _, d = x.shape
+    conv: [B,K-1,C]). Returns (out [B,1,d], new state). With `plan`: the
+    rank's heads (`SplitPlan.mamba2_weights`), whose state `state` holds
+    (h [B,Hr,N,P], conv [B,K-1,Hr·P+2N]: their x channels, then B and C)."""
+    split = None
+    if plan is not None:
+        plan = plan.gather_layer(p)
+        p = plan.mamba2_weights(p)
+        split, x = p.split, plan.enter(x, p.split)
+    b = x.shape[0]
     n, pdim = cfg.ssm_state, cfg.ssm_head_dim
-    heads = d // pdim
-    z, xin, bc, dt = _split_in_proj(x @ p.in_proj, cfg)
+    heads = p.a_log.shape[0]
+    c = heads * pdim
+    z, xin, bc, dt = _split_in_proj(x @ p.in_proj, cfg, heads)
     hist = torch.cat([state["conv"], torch.cat([xin, bc], dim=-1)], dim=1)   # [B,K,C]
     conv_out = silu(torch.einsum("bkc,kc->bc", hist, p.conv_w))[:, None]
-    xin, bmat, cmat = torch.split(conv_out, [d, n, n], dim=-1)
+    xin, bmat, cmat = torch.split(conv_out, [c, n, n], dim=-1)
     dt = F.softplus(dt.float() + p.dt_bias)[:, 0]                 # [B,H]
     decay = torch.exp(-torch.exp(p.a_log) * dt)                   # [B,H]
     xh = xin.reshape(b, heads, pdim)
@@ -171,17 +198,20 @@ def mamba2_decode(p: Mamba2, cfg, x, state):
         kt.float()[..., :, None] * vt.float()[..., None, :]
     y = torch.einsum("bhn,bhnp->bhp", qt.float(), hnew)
     y = y + p.d_skip[None, :, None] * xh.float()
-    y = y.reshape(b, 1, d).to(x.dtype) * silu(z)
+    y = y.reshape(b, 1, c).to(x.dtype) * silu(z)
     out = p.norm(y, cfg.norm_eps) @ p.out_proj
+    if plan is not None:
+        out = plan.leave(out, split)
     return out, {"h": hnew, "conv": hist[:, 1:]}
 
 
-def mamba2_init_state(cfg, batch, dtype, device):
-    d = cfg.d_model
-    heads = d // cfg.ssm_head_dim
+def mamba2_init_state(cfg, batch, dtype, device, heads=None):
+    """The zero state of `heads` heads (all of them by default)."""
+    heads = heads or cfg.d_model // cfg.ssm_head_dim
     return {"h": torch.zeros((batch, heads, cfg.ssm_state, cfg.ssm_head_dim),
                              dtype=torch.float32, device=device),
-            "conv": torch.zeros((batch, cfg.conv_width - 1, d + 2 * cfg.ssm_state),
+            "conv": torch.zeros((batch, cfg.conv_width - 1,
+                                 heads * cfg.ssm_head_dim + 2 * cfg.ssm_state),
                                 dtype=dtype, device=device)}
 
 
@@ -205,15 +235,19 @@ class MLSTM(nn.Module):
         self.out = nn.Parameter(dense_init((heads * hd, d), dtype, generator=g))
         self.norm = RMSNorm(heads * hd, dtype, g.device)
 
-    def forward(self, x, cfg, chunk=None):
-        return mlstm_block(self, cfg, x, chunk)
+    def forward(self, x, cfg, chunk=None, plan=None):
+        if plan is None:
+            return mlstm_block(self, cfg, x, chunk)
+        plan = plan.gather_layer(self)
+        w = plan.mlstm_weights(self)
+        return plan.leave(mlstm_block(w, cfg, plan.enter(x, w.split), chunk), w.split)
 
 
 def _mlstm_qkv(p: MLSTM, cfg, x):
     """q (scaled), k (times the input gate), v: [B,S,H,hd]; log forget
-    gate [B,S,H] f32."""
+    gate [B,S,H] f32; H the heads of `p`'s wf."""
     b, s, _ = x.shape
-    heads, hd = cfg.n_heads, cfg.hd
+    heads, hd = p.wf.shape[-1], cfg.hd
     q = (x @ p.wq).reshape(b, s, heads, hd) / (hd ** 0.5)
     k = (x @ p.wk).reshape(b, s, heads, hd)
     v = (x @ p.wv).reshape(b, s, heads, hd)
@@ -226,7 +260,7 @@ def _mlstm_qkv(p: MLSTM, cfg, x):
 def mlstm_block(p: MLSTM, cfg, x, chunk=None):
     """mLSTM ≈ gated linear attention with sigmoid forget / exp input gates."""
     b, s, _ = x.shape
-    heads, hd = cfg.n_heads, cfg.hd
+    heads, hd = p.wf.shape[-1], cfg.hd
     chunk = chunk or min(cfg.ssm_chunk, s)
     q, k, v, logf = _mlstm_qkv(p, cfg, x)
     y = _chunked_or_ref(q, k, v, logf, chunk)
@@ -235,11 +269,17 @@ def mlstm_block(p: MLSTM, cfg, x, chunk=None):
     return p.norm(y, cfg.norm_eps) @ p.out
 
 
-def mlstm_decode(p: MLSTM, cfg, x, state):
+def mlstm_decode(p: MLSTM, cfg, x, state, plan=None):
     """One-token decode. state: dict(h [B,H,hd,hd] f32, m [B,H], n [B,H,hd]);
-    m and n pass through, as in the reference."""
+    m and n pass through, as in the reference. With `plan`: the rank's
+    heads (`SplitPlan.mlstm_weights`), whose h `state` holds; m and n whole."""
+    split = None
+    if plan is not None:
+        plan = plan.gather_layer(p)
+        p = plan.mlstm_weights(p)
+        split, x = p.split, plan.enter(x, p.split)
     b = x.shape[0]
-    heads, hd = cfg.n_heads, cfg.hd
+    heads, hd = p.wf.shape[-1], cfg.hd
     q, k, v, logf = (t[:, 0] for t in _mlstm_qkv(p, cfg, x))
     hnew = state["h"] * torch.exp(logf)[..., None, None] + \
         k.float()[..., :, None] * v.float()[..., None, :]
@@ -247,15 +287,19 @@ def mlstm_decode(p: MLSTM, cfg, x, state):
     o = torch.sigmoid(x @ p.wo_gate).reshape(b, heads, hd)
     y = (y.to(x.dtype) * o).reshape(b, 1, heads * hd)
     out = p.norm(y, cfg.norm_eps) @ p.out
+    if plan is not None:
+        out = plan.leave(out, split)
     return out, {"h": hnew, "m": state["m"], "n": state["n"]}
 
 
-def mlstm_init_state(cfg, batch, device):
-    heads, hd = cfg.n_heads, cfg.hd
+def mlstm_init_state(cfg, batch, device, heads=None):
+    """The zero state; h of `heads` heads (all of them by default), m and
+    n of every head."""
+    hd = cfg.hd
     f32 = dict(dtype=torch.float32, device=device)
-    return {"h": torch.zeros((batch, heads, hd, hd), **f32),
-            "m": torch.zeros((batch, heads), **f32),
-            "n": torch.zeros((batch, heads, hd), **f32)}
+    return {"h": torch.zeros((batch, heads or cfg.n_heads, hd, hd), **f32),
+            "m": torch.zeros((batch, cfg.n_heads), **f32),
+            "n": torch.zeros((batch, cfg.n_heads, hd), **f32)}
 
 
 class SLSTM(nn.Module):
@@ -271,8 +315,12 @@ class SLSTM(nn.Module):
         self.out = nn.Parameter(dense_init((d, d), dtype, generator=g))
         self.norm = RMSNorm(d, dtype, g.device)
 
-    def forward(self, x, cfg):
-        return slstm_block(self, cfg, x)
+    def forward(self, x, cfg, plan=None):
+        if plan is None:
+            return slstm_block(self, cfg, x)
+        plan = plan.gather_layer(self)
+        w = plan.slstm_weights(self)
+        return plan.leave(slstm_block(w, cfg, plan.enter(x, w.split)), w.split)
 
 
 def _slstm_gates(p: SLSTM, x):
@@ -295,26 +343,38 @@ def _slstm_step(c, n, m, zt, it, logft, ot):
 
 def slstm_block(p: SLSTM, cfg, x):
     """Scalar-memory LSTM with exponential gating: inherently sequential,
-    one step per token (the reference's lax.scan)."""
-    b, s, d = x.shape
+    one step per token (the reference's lax.scan), over the channels of
+    `p`'s wz."""
+    b, s, _ = x.shape
+    width = p.wz.shape[-1]
     z, i_pre, logf, o = _slstm_gates(p, x)
-    c = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+    c = torch.zeros((b, width), dtype=torch.float32, device=x.device)
     n = torch.zeros_like(c)
     m = torch.full_like(c, -1e30)
-    hs = torch.empty((b, s, d), dtype=torch.float32, device=x.device)
+    hs = torch.empty((b, s, width), dtype=torch.float32, device=x.device)
     for t in range(s):
         c, n, m, hs[:, t] = _slstm_step(c, n, m, z[:, t], i_pre[:, t], logf[:, t], o[:, t])
     return p.norm(hs.to(x.dtype), cfg.norm_eps) @ p.out
 
 
-def slstm_decode(p: SLSTM, cfg, x, state):
-    """One sLSTM step with carried (c, n, m) state. x: [B, 1, d]."""
+def slstm_decode(p: SLSTM, cfg, x, state, plan=None):
+    """One sLSTM step with carried (c, n, m) state. x: [B, 1, d]. With
+    `plan`: the rank's channels (`SplitPlan.slstm_weights`), whose state
+    `state` holds."""
+    split = None
+    if plan is not None:
+        plan = plan.gather_layer(p)
+        p = plan.slstm_weights(p)
+        split, x = p.split, plan.enter(x, p.split)
     z, i_pre, logf, o = (t[:, 0] for t in _slstm_gates(p, x))
     c, n, m, h = _slstm_step(state["c"], state["n"], state["m"], z, i_pre, logf, o)
     y = p.norm(h.to(x.dtype)[:, None], cfg.norm_eps) @ p.out
+    if plan is not None:
+        y = plan.leave(y, split)
     return y, {"c": c, "n": n, "m": m}
 
 
-def slstm_init_state(cfg, batch, device):
-    c = torch.zeros((batch, cfg.d_model), dtype=torch.float32, device=device)
+def slstm_init_state(cfg, batch, device, width=None):
+    """The zero state of `width` channels (d by default)."""
+    c = torch.zeros((batch, width or cfg.d_model), dtype=torch.float32, device=device)
     return {"c": c, "n": torch.zeros_like(c), "m": torch.full_like(c, -1e30)}

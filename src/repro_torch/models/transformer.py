@@ -19,17 +19,19 @@ activations are recomputed in the backward pass instead of kept, the
 reference's `jax.checkpoint` on its scan body. Serving runs under
 `inference_mode`, where it has no effect.
 
-`set_constraint_mesh(layout)` installs a layout's split plan on a dense
-or MoE model whose parameters hold this rank's blocks
-(`launch.sharding.place` does it): the counterpart of the reference's
-`set_constraint_mesh` and of its constraint pinning the logits
-vocab-split. The forward then runs the embedding, each layer (its heads,
-its ff columns or its experts and shared-expert columns) and the logits
-through the plan (each layer's gathers inside its remat body, so the
-recompute gathers again) and returns
-the logits of the rank's vocab block, or with `last_only` the whole
-last-token logits gathered over "model". `init_cache` then allocates the
-rank's block of the KV cache, and `decode_step` runs the plan too.
+`set_constraint_mesh(layout)` installs a layout's split plan on a model
+whose parameters hold this rank's blocks (`launch.sharding.place` does
+it): the counterpart of the reference's `set_constraint_mesh` and of its
+constraint pinning the logits vocab-split. The forward then runs the
+embedding, each layer (its heads, its ff columns or its experts and
+shared-expert columns; a Mamba2 or mLSTM layer its heads, an sLSTM layer
+its channels; the hybrid's shared attention block at each call site)
+and the logits through the plan (each layer's gathers inside its remat
+body, so the recompute gathers again) and returns the logits of the
+rank's vocab block, or with `last_only` the whole last-token logits
+gathered over "model". `init_cache` then allocates the rank's block of
+the KV cache and of the recurrent states, and `decode_step` runs the plan
+too.
 """
 from __future__ import annotations
 
@@ -149,8 +151,8 @@ class Transformer(nn.Module):
 
     def set_constraint_mesh(self, layout):
         """Installs the split plan of `layout` (a `launch.sharding.Layout`
-        whose blocks the parameters hold) on this dense or MoE model; None
-        removes it. The reference's `set_constraint_mesh`, per model."""
+        whose blocks the parameters hold) on this model; None removes it.
+        The reference's `set_constraint_mesh`, per model."""
         if layout is None:
             self.plan = None
             return
@@ -176,17 +178,17 @@ class Transformer(nn.Module):
             sites = set(_attn_sites(cfg))
 
             def body(x, layer, attn):
-                x = x + layer(x, cfg)
+                x = x + layer(x, cfg, plan=plan)
                 if attn:
-                    x, _ = self.shared_attn(x, positions, impl, cfg)
+                    x, _ = self.shared_attn(x, positions, impl, cfg, plan)
                 return x
             for i, layer in enumerate(self.layers):
                 x = remat_call(remat, body, x, layer, i in sites)
         else:
             for layer in self.mlstm:
-                x = remat_call(remat, lambda x, layer: x + layer(x, cfg), x, layer)
+                x = remat_call(remat, lambda x, layer: x + layer(x, cfg, plan=plan), x, layer)
             for layer in self.slstm:
-                x = x + layer(x, cfg)
+                x = x + layer(x, cfg, plan=plan)
         x = self.ln_f(x, cfg.norm_eps)
         if last_only:      # prefill: only the next-token logits are needed
             x = x[:, -1:]
@@ -201,9 +203,17 @@ class Transformer(nn.Module):
         shared-attention call site (at least one)};
         ssm: {"mlstm": one state per mLSTM layer, "slstm": one (c, n, m)
         state per sLSTM layer}. Under a split plan `batch` is the rank's
-        rows, and each layer's cache holds the rank's slots of `max_len`
-        (`SplitPlan.cache_slots`) and records `max_len`."""
-        cfg, dev, dtype = self.cfg, self.embed.device, _dt(self.cfg)
+        rows, each KV cache holds the rank's slots of `max_len`
+        (`SplitPlan.cache_slots`) and records `max_len`, and each
+        recurrent state the rank's heads (Mamba2: h, and conv's x
+        channels beside B and C; mLSTM: h) or channels (sLSTM)."""
+        cfg, dev, dtype, plan = self.cfg, self.embed.device, _dt(self.cfg), self.plan
+
+        def count(group):        # the rank's heads or channels of a recurrent group
+            if plan is None:
+                return None
+            lo, hi = getattr(plan, group)
+            return hi - lo
 
         def kv(n):
             if self.plan is not None:
@@ -215,18 +225,22 @@ class Transformer(nn.Module):
         if cfg.family in ("dense", "moe"):
             return {"kv": kv(cfg.n_layers)}
         if cfg.family == "hybrid":
-            return {"ssm": [mamba2_init_state(cfg, batch, dtype, dev) for _ in self.layers],
+            return {"ssm": [mamba2_init_state(cfg, batch, dtype, dev, count("mamba_heads"))
+                            for _ in self.layers],
                     "kv": kv(max(len(_attn_sites(cfg)), 1))}
-        return {"mlstm": [mlstm_init_state(cfg, batch, dev) for _ in self.mlstm],
-                "slstm": [slstm_init_state(cfg, batch, dev) for _ in self.slstm]}
+        return {"mlstm": [mlstm_init_state(cfg, batch, dev, count("mlstm_heads"))
+                          for _ in self.mlstm],
+                "slstm": [slstm_init_state(cfg, batch, dev, count("channels"))
+                          for _ in self.slstm]}
 
     def decode_step(self, tokens, cache: dict, pos: int):
         """tokens: [B, 1]; pos: the position. Returns (logits [B, V] f32,
-        cache), the cache updated in place. Under a split plan (a dense
-        or MoE model) tokens are the rank's rows and the cache its block
-        (`init_cache` with the plan installed): the embedding, each layer
-        and the logits run through the plan, and the logits come back
-        whole, equal on every rank of "model"."""
+        cache), the cache updated in place. Under a split plan tokens are
+        the rank's rows and the cache its block (`init_cache` with the
+        plan installed): the embedding, each layer (the hybrid's shared
+        attention block at each call site) and the logits run through the
+        plan, and the logits come back whole, equal on every rank of
+        "model"."""
         cfg, plan = self.cfg, self.plan
         x = (self.embed[tokens] if plan is None else plan.embed(self.embed, tokens)) \
             * cfg.scale_emb
@@ -236,16 +250,16 @@ class Transformer(nn.Module):
         elif cfg.family == "hybrid":
             sites = _attn_sites(cfg)
             for i, layer in enumerate(self.layers):
-                h, cache["ssm"][i] = mamba2_decode(layer, cfg, x, cache["ssm"][i])
+                h, cache["ssm"][i] = mamba2_decode(layer, cfg, x, cache["ssm"][i], plan)
                 x = x + h
                 if i in sites:
-                    x = self.shared_attn.decode(x, cache["kv"][sites.index(i)], pos, cfg)
+                    x = self.shared_attn.decode(x, cache["kv"][sites.index(i)], pos, cfg, plan)
         else:
             for i, layer in enumerate(self.mlstm):
-                h, cache["mlstm"][i] = mlstm_decode(layer, cfg, x, cache["mlstm"][i])
+                h, cache["mlstm"][i] = mlstm_decode(layer, cfg, x, cache["mlstm"][i], plan)
                 x = x + h
             for i, layer in enumerate(self.slstm):
-                h, cache["slstm"][i] = slstm_decode(layer, cfg, x, cache["slstm"][i])
+                h, cache["slstm"][i] = slstm_decode(layer, cfg, x, cache["slstm"][i], plan)
                 x = x + h
         x = self.ln_f(x, cfg.norm_eps)
         if plan is not None:

@@ -243,6 +243,46 @@ def test_split_moe_cuts_a_ranks_flops_and_bytes(monkeypatch):
     assert split["held_bytes"] == gathered["held_bytes"]
 
 
+@pytest.mark.parametrize("kind", ["train", "decode"])
+@pytest.mark.parametrize("name", ["zamba2-1.2b", "xlstm-1.3b"])
+def test_split_recurrent_cuts_a_ranks_flops_and_bytes(monkeypatch, name, kind):
+    """A zamba2-1.2b or xlstm-1.3b smoke cell on a fake world of 8 ranks,
+    mesh (2, 4): on the split plan a rank runs its Mamba2 or mLSTM heads,
+    its sLSTM channels and (zamba2) its shared attention heads, so its dot
+    FLOPs and its argument plus temp bytes fall below the gathered plan's
+    (whole parameters on every rank); each record names its plan."""
+    cfg = dataclasses.replace(configs.ARCHS[name].smoke(), n_layers=4)
+    cell = configs.base.ShapeCell("decode_smoke", 256, 8, "decode")
+    with dryrun.fake_world(8):
+        mesh = lt.make_mesh("2,4", device="meta")
+
+        def census():
+            if kind == "train":
+                return dryrun.train_census(cfg, seq=32, global_batch=8, microbatches=2,
+                                           mesh=mesh)
+            return dryrun.serve_census(cfg, cell, mesh)
+        split = census()
+        monkeypatch.setattr(sh.Layout, "_plan", "gathered")
+        gathered = census()
+    assert split["plan"] == "split" and gathered["plan"] == "gathered"
+
+    def held(rec):
+        return rec["memory"]["argument_size_in_bytes"] + rec["memory"]["temp_size_in_bytes"]
+    assert held(split) < held(gathered)
+    assert 0 < split["flops"] < gathered["flops"]
+    assert split["held_bytes"] == gathered["held_bytes"]
+
+
+def test_encdec_stays_gathered():
+    """seamless-m4t-large-v2 (enc-dec) is not on the split plan yet
+    (ROADMAP item 15d-ii): its dry-run record names the gathered plan."""
+    cfg = dataclasses.replace(configs.ARCHS["seamless-m4t-large-v2"].smoke(), n_enc_layers=1,
+                              n_dec_layers=1)
+    cell = configs.base.ShapeCell("decode_smoke", 64, 8, "decode")
+    with dryrun.fake_world(8):
+        rec = dryrun.serve_census(cfg, cell, lt.make_mesh("2,4", device="meta"))
+    assert rec["plan"] == "gathered"
+
 # --- roofline ------------------------------------------------------------------
 
 def test_roofline_terms_and_bottleneck():

@@ -672,6 +672,125 @@ def run_split_moe(payload, mesh):
     return out
 
 
+def _mutant_norms(kind):
+    """A `SplitPlan._split_norm` with a fault of `kind`, to show that the
+    tests see it: "scale_raw" applies the scale's slice without
+    `copy_to` (each rank's gradient of it from its own channels only);
+    "sum_no_backward" sums the squares over "model" with `reduce_from`
+    alone (forward exact, the backward not summed); "local" normalises by
+    the rank's own channels (no cross-rank sum)."""
+    from repro_torch.launch import parallel as par
+    from repro_torch.models.layers import rmsnorm
+
+    def split_norm(self, norm, lo, hi):
+        width, model = norm.scale.shape[0], self.model
+        scale = (norm.scale if kind == "scale_raw" else par.copy_to(norm.scale, model)) \
+            .narrow(0, lo, hi - lo)
+
+        def apply(x, eps=1e-5):
+            if kind == "local":
+                return rmsnorm(scale, x, eps)
+            xf = x.float()
+            sq = par.reduce_from(torch.sum(xf * xf, dim=-1, keepdim=True), model)
+            if kind != "sum_no_backward":
+                sq = par.copy_to(sq, model)
+            return (xf * torch.rsqrt(sq / width + eps) * scale.float()).to(x.dtype)
+        return apply
+    return split_norm
+
+
+def run_split_ssm(payload, mesh):
+    """payload: [dict(id, arch, layers, arrays, spec, steps, microbatches,
+    seq, global_batch, tokens [B, T] or None, max_len, mutant)]. The arch's smoke
+    config at `layers` layers in f32, holding the reference's weights
+    (`from_reference`), placed on the mesh by the specs (the split plan)
+    with `Layout.gather_params` made to raise; mutant (None, or a kind of
+    `_mutant_norms`) swaps the plan's split RMSNorm for a faulty one.
+    With tokens, first the split prefill's last-token logits of step 0's
+    rows (`impl="chunked"`) and `decode_step` of each of the T tokens of
+    the rank's rows from `init_cache(rows, max_len)` (its logits [T, rows,
+    V] and the bytes of each cache leaf, by path); then `steps` train steps
+    of `launch.train`'s data: the losses, grad norms and held bytes, the
+    plan's choices, the rank's blocks of the leaves "model" does not
+    split (with its "data" coordinate) and (rank 0) every parameter
+    gathered."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import train as lt
+    from repro_torch.launch.mesh import effective_batch_axes
+    from repro_torch.models.weights import from_reference
+    from repro_torch.train import OptimizerConfig, init_state, make_train_step
+
+    def refuse(self, params):
+        raise AssertionError("a split step gathered the parameters whole")
+
+    def leaves(node, path=""):
+        if isinstance(node, torch.Tensor):
+            return {path: node.numel() * node.element_size()}
+        items = node.items() if isinstance(node, dict) else enumerate(node) \
+            if isinstance(node, list) else ()
+        out = {}
+        for k, v in items:
+            out.update(leaves(v, f"{path}.{k}" if path else str(k)))
+        return out
+    out = {}
+    plain_norm = sh.SplitPlan._split_norm
+    for c in payload:
+        cfg = dataclasses.replace(ARCHS[c["arch"]].smoke(), n_layers=c["layers"],
+                                  dtype="float32")
+        m = lt.make_mesh(c["spec"], device="cpu")
+        model = from_reference(c["arrays"], cfg, device="cpu")
+        state = init_state(model)
+        gb = c["global_batch"]
+        lay = sh.named(m, sh.param_specs(state.params, dict(m.shape)),
+                       effective_batch_axes(m, gb))
+        lay.gather_params = types.MethodType(refuse, lay)
+        if c["mutant"]:
+            sh.SplitPlan._split_norm = _mutant_norms(c["mutant"])
+        try:
+            state = sh.place(state, lay)
+            plan = model.net.plan
+            dc = lt.data_config(cfg, c["seq"], gb)
+            rows = lay.rows(gb)
+            res = dict(ran=lay.plan_for(cfg), rows=[rows.start, rows.stop],
+                       batch_axes=lay.batch_axes,
+                       plan={k: getattr(plan, k) for k in (
+                           "heads", "q", "ff", "vocab", "mamba", "mamba_heads", "mlstm",
+                           "mlstm_heads", "slstm", "channels")})
+            toks = c["tokens"]
+            if toks is not None:
+                d_rows = lay.rows(toks.shape[0])
+                with torch.inference_mode():
+                    prefill, _ = model(lt.batch_for(cfg, dc, 0, "cpu", rows), impl="chunked",
+                                       last_only=True)
+                    cache = model.init_cache(d_rows.stop - d_rows.start, c["max_len"])
+                    t = torch.from_numpy(toks[d_rows]).long()
+                    dec = []
+                    for i in range(t.shape[1]):
+                        lg, cache = model.decode_step(t[:, i:i + 1], cache, i)
+                        dec.append(host(lg))
+                res.update(prefill=host(prefill), decode=np.stack(dec),
+                           decode_rows=[d_rows.start, d_rows.stop], cache_bytes=leaves(cache))
+            step = make_train_step(model, OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                                          total_steps=10),
+                                   microbatches=c["microbatches"])
+            hist = []
+            for i in range(c["steps"]):
+                state, met = step(state, lt.batch_for(cfg, dc, i, "cpu", rows))
+                hist.append(dict(loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+                                 lr=float(met["lr"]), held_bytes=sh.held_bytes(state)))
+        finally:
+            sh.SplitPlan._split_norm = plain_norm
+        unsplit = {n: host(p.detach()) for n, p in state.params.items()
+                   if not any("model" in sh._axes(e) for _, e in lay._split(n))}
+        whole = {n: host(lay.gather(n, p.detach())) for n, p in state.params.items()}
+        out[c["id"]] = dict(res, history=hist, data_rank=lay.axis("data").rank,
+                            not_model_split=unsplit,
+                            params=whole if mesh.rank == 0 else None)
+    return out
+
+
 def run_gather_dtypes(payload, mesh):
     """payload: [(case_id, seed)]. One "data" axis of the world: a bf16
     leaf [8, 12] split by rows and an f32 leaf [12, 8] split by columns,
@@ -704,12 +823,12 @@ def run_gather_dtypes(payload, mesh):
 def run_cases(payload: dict, mesh) -> dict:
     """Each section of the payload ("programs", "exchanges", "gathers",
     "grid", "pods", "tune", "train", "reduce", "moments", "split_functions",
-    "split_steps", "split_decode", "split_moe", "gather_dtypes"), in that
-    order on every rank."""
+    "split_steps", "split_decode", "split_moe", "split_ssm", "gather_dtypes"),
+    in that order on every rank."""
     jobs = {"programs": run_programs, "exchanges": run_exchanges, "gathers": run_gathers,
             "grid": run_grid, "pods": run_pods, "tune": run_tune, "train": run_train,
             "reduce": run_reduce, "moments": run_moments,
             "split_functions": run_split_functions, "split_steps": run_split_steps,
             "split_decode": run_split_decode, "split_moe": run_split_moe,
-            "gather_dtypes": run_gather_dtypes}
+            "split_ssm": run_split_ssm, "gather_dtypes": run_gather_dtypes}
     return {k: jobs[k](payload[k], mesh) for k in jobs if k in payload}
