@@ -4,12 +4,13 @@
     python3 chip_smoke.py                          # the smoke run: one card, RMAT scale 22
     python3 chip_smoke.py --trace                  # ... and where each run's time goes
     python3 chip_smoke.py --scale 10 --device cpu  # rehearsal of the plain versions
-    torchrun --nproc-per-node 4 chip_smoke.py --dist-only   # phases 16, 17, 19, 21-24 on 4 cards
+    torchrun --nproc-per-node 4 chip_smoke.py --dist-only   # phases 16, 17, 19, 21-25 on 4 cards
     torchrun --nproc-per-node 4 chip_smoke.py --dist-only train   # phase 19 alone
     torchrun --nproc-per-node 4 chip_smoke.py --dist-only tp      # phase 21 alone
     torchrun --nproc-per-node 4 chip_smoke.py --dist-only decode  # phase 22 alone
     torchrun --nproc-per-node 4 chip_smoke.py --dist-only moe     # phase 23 alone
     torchrun --nproc-per-node 4 chip_smoke.py --dist-only ssm     # phase 24 alone
+    torchrun --nproc-per-node 4 chip_smoke.py --dist-only encdec  # phase 25 alone
 
 Phases, each printed with its own seconds; any failure exits non-zero:
 
@@ -187,20 +188,21 @@ graph:
                rank's schedule and record the same (an all-gather of a
                digest), the winner's dist equal to `cuda`'s.
 
-`--dist-only` runs the graph, its `cuda` baselines and phases 16, 17, 19,
-21, 22, 23 and 24 alone (`--dist-only train`: phase 19 alone, `--dist-only
+`--dist-only` runs the graph, its `cuda` baselines and phases 16, 17, 19
+and 21 to 25 alone (`--dist-only train`: phase 19 alone, `--dist-only
 tp`: phase 21 alone, `--dist-only decode`: phase 22 alone, `--dist-only
-moe`: phase 23 alone, `--dist-only ssm`: phase 24 alone; phases 23 and
-24 need 4 ranks); under `torchrun
+moe`: phase 23 alone, `--dist-only ssm`: phase 24 alone, `--dist-only
+encdec`: phase 25 alone; phases 23 to 25 need 4 ranks); under `torchrun
 --nproc-per-node 4 chip_smoke.py --dist-only` (one card a rank, NCCL)
 phase 17 takes the grids (2, 2), (1, 4) and (4, 1) and the pods (2, 2)
 and (4, 1), a pod count above 1 holding `_gather_elems` to the sum of
 each pod's slice run alone; only rank 0 prints. On the card rank 0 ends
 with a {"kernels": [...]} line of flash_attention.bf16 with the launches
-of phases 21, 23 and 24, timed at the first one's shape (BH = 4, S =
-32,768, D = 128; phase 24 alone: BH = 8, D = 64).
+of phases 21, 23, 24 and 25, timed at the first one's shape (BH = 4, S =
+32,768, D = 128; phase 24 alone: BH = 8, D = 64; phase 25 alone: BH = 4,
+S = 32,768, D = 64, non-causal).
 
-Phase 18 runs after phase 15, phases 19, 21, 22, 23 and 24 only under
+Phase 18 runs after phase 15, phases 19 and 21 to 25 only under
 --dist-only:
 
  18. train   — qwen2.5-3b at full width and depth (bf16, seeded init)
@@ -328,7 +330,36 @@ Phase 18 runs after phase 15, phases 19, 21, 22, 23 and 24 only under
                (`plan_state_bytes`, ROADMAP §3), and 3 train steps of 4 x
                2,048 tokens (xlstm 4 x 512) at the specs' bytes, finite.
                Prints beside nvidia-smi's name and power limit; runs
-               every part and then fails if any check did.
+               every part and then fails if any check did;
+ 25. tp-encdec — the enc-dec family on the split plan (each rank its
+               query and KV heads in the encoder's self-attention, the
+               decoder's self-attention and cross-attention, its ff
+               columns and vocab rows over "model"; one layer gathered
+               over "data" at a time; in decode its block of each self
+               KV cache's sequence and of the encoder output's sequence
+               over "model", cross-attention combined in a softmax
+               across "model" in plain torch), seeded, 4 ranks
+               (`--dist-only encdec` alone, or a bare `--dist-only` at 4
+               ranks): seamless-m4t-large-v2 at full width with 4
+               encoder and 4 decoder layers, f32, 3 steps of 8 rows x
+               2,048 frames and 2,048 tokens in 2 microbatches on (2, 2)
+               and (1, 4), the specs' bytes held, losses at
+               TRAIN_LOSS_RTOL of rank 0's one-card run, then a 2,048-
+               frame + 256-token prefill and 4 decode steps (8 rows x
+               4,096 encoder slots and 4,096 self slots) at
+               F32_LOGIT_ATOL of one card's; then at full size in bf16
+               on (1, 4): a prefill of 32,768 frames + 1,024 decoder
+               tokens (flash on each rank's 4 heads at all 72 sites, 72
+               launches a rank, the first call of each of the three
+               shapes held against attention_ref in blocks), 4 decode
+               steps over 8 rows x 32,768 encoder slots and 32,768 self
+               slots (against one card's rows 0 and 1: printed), every
+               rank's cache bytes the specs' (self KV and encoder output
+               alike), 3 train steps of 4 x 2,048 at the specs' bytes,
+               finite; flash timed at a rank's encoder shape (BH 4, S
+               32,768, D 64, non-causal) and cross shape (SQ 1,024, SKV
+               32,768). Prints beside nvidia-smi's name and power limit;
+               runs every part and then fails if any check did.
 
 Phase 20 runs after phase 18:
 
@@ -1943,24 +1974,27 @@ def lm_kernel_phase(seed, dev, on_card, long_seq):
     return flash_entry(q, k, v, got, chunk, max(bf16_err, err))
 
 
-def flash_entry(q, k, v, got, chunk, max_abs_err):
-    """The kernels line's entry of flash_attention.bf16 at the shape of q,
-    k, v ([BH, S, D] bf16, causal; `got` the kernel's output): the kernel
-    timed beside the plain version in blocks of `chunk` query rows, SDPA
-    and the bound; launches filled in by the caller."""
+def flash_entry(q, k, v, got, chunk, max_abs_err, causal=True):
+    """The kernels line's entry of flash_attention.bf16 at the shape of q
+    [BH, SQ, D] and k, v [BH, SKV, D] (bf16; `got` the kernel's output):
+    the kernel timed beside the plain version in blocks of `chunk` query
+    rows, SDPA and the bound; launches filled in by the caller."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import flash_attention
     bh, s, d = q.shape
-    flops, bound, bound_by = flash_bound_ms(bh, s, s, d, True, 2)
-    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), n=10)
-    plain_ms = cuda_ms(lambda: attention_ref_in_chunks(q, k, v, chunk), n=2, warm=1)
+    skv = k.shape[1]
+    flops, bound, bound_by = flash_bound_ms(bh, s, skv, d, causal, 2)
+    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal), n=10)
+    plain_ms = cuda_ms(lambda: attention_ref_in_chunks(q, k, v, chunk, causal), n=2, warm=1)
     # SDPA takes [B, H, S, D]; on 3-d operands it falls back to its
     # materializing path. Timed as the library call, never used by the port
-    q4, k4, v4 = (x.view(1, bh, s, d) for x in (q, k, v))
-    lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)  # noqa: E731
+    q4, k4, v4 = q.view(1, bh, s, d), k.view(1, bh, skv, d), v.view(1, bh, skv, d)
+    lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)  # noqa: E731
     lib_err = float((got.float() - lib()[0].float()).abs().max())
     lib_ms = cuda_ms(lib, n=10)
-    print(f"  flash_attention bf16 BH={bh} S={s} D={d} causal: {ms:.4f} ms "
+    shape = f"S={s}" if s == skv else f"SQ={s} SKV={skv}"
+    print(f"  flash_attention bf16 BH={bh} {shape} D={d} "
+          f"{'causal' if causal else 'non-causal'}: {ms:.4f} ms "
           f"({flops / ms / 1e9:.1f} TFLOP/s), bound {bound:.4f} ms ({bound_by}, "
           f"{flops:.3e} FLOPs at {BF16_OPS_PER_S:.3e}/s), plain in blocks {plain_ms:.4f} ms, "
           f"SDPA {lib_ms:.4f} ms (max abs diff vs SDPA {lib_err:.3e})")
@@ -3253,16 +3287,16 @@ def specs_cache_bytes(cfg, rows, slots, layout):
                for lc, spec in zip(whole["kv"], specs["kv"]) for n in ("k", "v"))
 
 
-def timed_decode(model, toks, cache, at, on_card):
-    """decode_step of each column of `toks` from position `at`, each timed
-    (host clock ending in a synchronize): the logits [steps, B, V] and the
-    seconds a step."""
+def timed_decode(model, toks, cache, at, on_card, **kw):
+    """decode_step of each column of `toks` from position `at` (with the
+    keywords `kw`), each timed (host clock ending in a synchronize): the
+    logits [steps, B, V] and the seconds a step."""
     import torch
     out, secs = [], []
     for i in range(toks.shape[1]):
         sync(on_card)
         t = time.perf_counter()
-        lg, cache = model.decode_step(toks[:, i:i + 1], cache, at + i)
+        lg, cache = model.decode_step(toks[:, i:i + 1], cache, at + i, **kw)
         sync(on_card)
         secs.append(time.perf_counter() - t)
         out.append(lg)
@@ -4059,16 +4093,18 @@ def state_bytes(cache):
     return sum(t.numel() * t.element_size() for t in state_leaves(cache).values())
 
 
-def plan_state_bytes(cfg, rows, slots, layout):
-    """The bytes of a decode cache of `rows` x `slots` a rank of `layout`
-    holds on the split plan, and `cache_specs`' arithmetic of the same: the
-    two part only where ROADMAP §3 records it (Mamba2's conv holds the
-    rank's x channels and B and C whole, against the specs' block of
-    (d + 2N) / m channels; an sLSTM state the rank's rows and d / m
-    channels, against the specs' whole c and n, m by rows)."""
+def plan_state_bytes(cfg, rows, slots, layout, enc_len=None):
+    """The bytes of a decode cache of `rows` x `slots` (encdec: and an
+    encoder output of `enc_len` slots) a rank of `layout` holds on the
+    split plan, and `cache_specs`' arithmetic of the same: the two part
+    only where ROADMAP §3 records it (Mamba2's conv holds the rank's x
+    channels and B and C whole, against the specs' block of (d + 2N) / m
+    channels; an sLSTM state the rank's rows and d / m channels, against
+    the specs' whole c and n, m by rows)."""
     from repro_torch.launch import sharding as sh
     from repro_torch.models import build
-    whole = build(cfg, device="meta").init_cache(rows, slots)
+    kw = {"enc_len": enc_len} if cfg.family == "encdec" else {}
+    whole = build(cfg, device="meta").init_cache(rows, slots, **kw)
     shape = dict(layout.mesh.shape)
     specs = state_leaves(sh.cache_specs(whole, layout.batch_axes, shape),
                          lambda node: isinstance(node, sh.P))
@@ -4088,50 +4124,93 @@ def plan_state_bytes(cfg, rows, slots, layout):
     return held, by_specs
 
 
-def ssm_refs(model, prompt, toks, seed, run, on_card, impl):
-    """A prefill of `prompt` (its last-token logits, `impl`, timed) and
-    decode logits [steps, rows, V] of `toks`' rows over `run`'s cache: the
-    KV caches (zamba2's shared-attention sites; the rows' and, placed, the
-    rank's slots) filled by `fill_cache` to `at` slots, the recurrent
-    states zero. Returns (prefill logits, decode logits, prefill s, ms a
-    decode step, the cache's bytes)."""
+def seeded_rows(seed, rows, shape, dtype, dev):
+    """[len(rows), *shape] of `dtype`: row b a normal tensor seeded by
+    (seed, b), so a rank's rows and one card's whole batch hold the same
+    values where they meet."""
+    import torch
+    gen = torch.Generator(device=dev)
+    out = torch.empty((len(rows),) + tuple(shape), dtype=dtype, device=dev)
+    for i, row in enumerate(rows):
+        gen.manual_seed(seed + 7919 * (row + 1))
+        out[i] = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    return out
+
+
+def tp_refs(model, prompt, toks, seed, run, on_card, impl):
+    """A prefill of the batch `prompt` (its last-token logits, `impl`,
+    timed) and decode logits [steps, rows, V] of `toks`' rows over `run`'s
+    cache: the KV caches (the rows' and, placed, the rank's slots) filled
+    by `fill_cache` to `at` slots, the recurrent states zero; encdec's
+    encoder output of `run["enc_len"]` slots seeded by row
+    (`seeded_rows`) and written by `set_encoder_output` (placed: the
+    rank's slots), its decode_step given `impl` (one card: the
+    cross-attention through the kernel at SQ = 1 where `impl` is
+    "kernel"; placed: plain torch whatever `impl`). Returns (prefill
+    logits, decode logits, prefill s, ms a decode step, the cache's
+    bytes)."""
     import torch
     slots, at = run["slots"], run["at"]
     plan = model.net.plan
     lo = plan.cache_slots(slots)[0] if plan is not None else 0
+    rows = range(run["rows_lo"], run["rows_lo"] + toks.shape[0])
+    encdec = model.cfg.family == "encdec"
     with torch.inference_mode():
         sync(on_card)
         t = time.perf_counter()
-        pre, _ = model({"tokens": prompt}, impl=impl, last_only=True)
+        pre, _ = model(prompt, impl=impl, last_only=True)
         sync(on_card)
         prefill_s = time.perf_counter() - t
-        cache = model.init_cache(toks.shape[0], slots)
+        if encdec:
+            cache = model.init_cache(toks.shape[0], slots, enc_len=run["enc_len"])
+            enc = seeded_rows(seed, rows, (run["enc_len"], model.cfg.d_model),
+                              model.net.embed.dtype, toks.device)
+            model.net.set_encoder_output(cache, enc)
+            del enc
+        else:
+            cache = model.init_cache(toks.shape[0], slots)
         if "kv" in cache:
-            fill_cache(cache, seed, range(run["rows_lo"], run["rows_lo"] + toks.shape[0]), lo,
-                       slots, at)
+            fill_cache(cache, seed, rows, lo, slots, at)
         held = state_bytes(cache)
-        dec, secs = timed_decode(model, toks, cache, at, on_card)
+        dec, secs = timed_decode(model, toks, cache, at, on_card,
+                                 **({"impl": impl} if encdec else {}))
         del cache
     return pre, dec, prefill_s, [1e3 * x for x in secs], held
 
 
-def ssm_serve_run(label, cfg, specs, run, seq, seed, on_card, dev, check_rows, chunk,
-                  problems):
+def prompt_of(cfg, seq, run, seed, dev):
+    """The seeded prefill batch: tokens [1, seq]; encdec frame embeddings
+    [1, seq, d] in the model's dtype and `run["dec_tokens"]` decoder
+    tokens."""
+    import torch
+    if cfg.family != "encdec":
+        return {"tokens": torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab, (1, seq))).to(dev)}
+    return {"embeds": seeded_rows(seed, range(1), (seq, cfg.d_model), getattr(torch, cfg.dtype),
+                                  dev),
+            "tokens": torch.from_numpy(np.random.default_rng(seed).integers(
+                0, cfg.vocab, (1, run["dec_tokens"]))).to(dev)}
+
+
+def tp_serve_run(tag, label, cfg, specs, run, seq, seed, on_card, dev, check_rows, chunk,
+                 problems):
     """The split prefill and decode of `cfg` (seeded, in its dtype) on each
     mesh of `specs`, against one card: rank 0 first runs one card's
-    prefill of one seeded prompt of `seq` tokens and its decode of rows
-    [0, check_rows) of `run`'s cache (`ssm_refs`) and broadcasts the
+    prefill of one seeded prompt of `seq` tokens (encdec: `seq` frames and
+    `run["dec_tokens"]` decoder tokens, `prompt_of`) and its decode of
+    rows [0, check_rows) of `run`'s cache (`tp_refs`) and broadcasts the
     logits; then for each mesh the model is built again, placed (each
     rank keeps its blocks) and runs the same: a warm-up prefill (on the
     card its flash calls, the first of each shape, held against
     attention_ref in blocks), the timed prefill counting flash launches,
-    the decode (each rank its rows, its block of the KV cache and its
-    heads or channels of the recurrent states). Held: the logits finite,
-    equal on the ranks that hold the same rows; in f32 within
-    F32_LOGIT_ATOL of one card's (bf16: printed); every rank's cache
-    bytes the plan's (`plan_state_bytes`); on the card one flash launch a
-    shared-attention site. A failed check is added to `problems`. Rank 0
-    prints each mesh's record (`label`). Returns (the records, the last
+    the decode (each rank its rows, its block of the KV cache, of the
+    encoder output and its heads or channels of the recurrent states).
+    Held: the logits finite, equal on the ranks that hold the same rows;
+    in f32 within F32_LOGIT_ATOL of one card's (bf16: printed); every
+    rank's cache bytes the plan's (`plan_state_bytes`); on the card the
+    forward's flash calls (`flash_calls`) launched once each. A failed
+    check is added to `problems`, each named by `tag` (the phase). Rank
+    0 prints each mesh's record (`label`). Returns (the records, the last
     placed model, its layout, each parameter's whole (numel, element
     size))."""
     import torch
@@ -4142,8 +4221,7 @@ def ssm_serve_run(label, cfg, specs, run, seq, seed, on_card, dev, check_rows, c
     rows_all, steps = run["rows"], run["steps"]
     f32 = cfg.dtype == "float32"
     impl = "ref" if f32 else "kernel"
-    prompt = torch.from_numpy(np.random.default_rng(seed).integers(
-        0, cfg.vocab, (1, seq))).to(dev)
+    prompt = prompt_of(cfg, seq, run, seed, dev)
     toks = torch.from_numpy(np.random.default_rng(seed + 1).integers(
         0, cfg.vocab, (rows_all, steps))).to(dev)
     v = cfg.vocab_padded
@@ -4152,7 +4230,7 @@ def ssm_serve_run(label, cfg, specs, run, seq, seed, on_card, dev, check_rows, c
     one_card = {}
     model = build(cfg, device=dev, seed=seed)
     if rank == 0:
-        want["pre"], want["dec"], one_card["prefill_s"], one_card["ms_per_step"], _ = ssm_refs(
+        want["pre"], want["dec"], one_card["prefill_s"], one_card["ms_per_step"], _ = tp_refs(
             model, prompt, toks[:check_rows], seed, dict(run, rows_lo=0), on_card, impl)
         one_card["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None
     for t in want.values():
@@ -4175,24 +4253,25 @@ def ssm_serve_run(label, cfg, specs, run, seq, seed, on_card, dev, check_rows, c
         with torch.inference_mode():
             if impl == "kernel":
                 with each_flash_call_held(held_rows, chunk, first_of_each_shape=True):
-                    model({"tokens": prompt}, impl=impl, last_only=True)
+                    model(prompt, impl=impl, last_only=True)
             else:
-                model({"tokens": prompt}, impl=impl, last_only=True)
+                model(prompt, impl=impl, last_only=True)
         if on_card:
             torch.cuda.reset_peak_memory_stats(dev)
         flash_attention.launches = 0
         got = {}
-        got["pre"], got["dec"], prefill_s, ms, held_cache = ssm_refs(
+        got["pre"], got["dec"], prefill_s, ms, held_cache = tp_refs(
             model, prompt, toks[rows], seed, dict(run, rows_lo=rows.start), on_card, impl)
         launches = flash_attention.launches
         peak = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None
         if held_rows:
-            held_calls_agree(cfg, "tp-ssm", held_rows)
+            held_calls_agree(cfg, tag, held_rows)
         first = got["pre"].clone()
         tdist.broadcast(first, src=0)
         every = [torch.empty_like(got["dec"]) for _ in range(world)]
         tdist.all_gather(every, got["dec"].contiguous())
-        plan_cache, specs_cache = plan_state_bytes(cfg, rows_all, run["slots"], layout)
+        plan_cache, specs_cache = plan_state_bytes(cfg, rows_all, run["slots"], layout,
+                                                   run.get("enc_len"))
         shared = range(rows.start, min(rows.stop, check_rows))
         err = {"pre": float((got["pre"] - want["pre"]).abs().max())}
         if len(shared):
@@ -4200,7 +4279,7 @@ def ssm_serve_run(label, cfg, specs, run, seq, seed, on_card, dev, check_rows, c
                                 - want["dec"][:, shared.start:shared.stop]).abs().max())
         info = dict(model=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, mesh=spec,
                     card=smi_line(on_card), plan={k: getattr(plan, k) for k in (
-                        "mamba_heads", "mlstm_heads", "channels", "q")},
+                        "mamba_heads", "mlstm_heads", "channels", "q", "f", "v")},
                     params_gb_a_rank=held_params / 1e9, prefill_tokens=seq, prefill_s=prefill_s,
                     tokens_per_s=seq / prefill_s, flash_launches=launches,
                     flash_calls_held=held_rows, decode_rows=rows_all, slots=run["slots"],
@@ -4209,31 +4288,35 @@ def ssm_serve_run(label, cfg, specs, run, seq, seed, on_card, dev, check_rows, c
                     specs_cache_gb_a_rank=specs_cache / 1e9, peak_gb=peak,
                     vs_one_card_rows=check_rows, vs_one_card_max_abs=err, one_card=one_card,
                     logit_max_abs=float(want["pre"].abs().max()))
+        if cfg.family == "encdec":
+            info.update(layers=[cfg.n_enc_layers, cfg.n_dec_layers],
+                        dec_tokens=run["dec_tokens"], enc_len=run["enc_len"],
+                        enc_slots=plan.enc_slots(run["enc_len"]))
         ranks = [None] * world
         tdist.all_gather_object(ranks, dict(prefill_s=prefill_s, ms=ms, peak_gb=peak,
                                             rows=[rows.start, rows.stop]))
         info["by_rank"] = ranks
-        shower(rank)(dict(tp_ssm=label, **info))
+        shower(rank)(dict({tag.replace("-", "_"): label}, **info))
         for k in ("pre", "dec"):
             if not bool(torch.isfinite(got[k]).all()):
-                problems.append(f"tp-ssm {cfg.name} {spec} {k}: non-finite logits")
+                problems.append(f"{tag} {cfg.name} {spec} {k}: non-finite logits")
         if not torch.equal(got["pre"], first):
-            problems.append(f"tp-ssm {cfg.name} {spec}: rank {rank}'s prefill logits differ "
+            problems.append(f"{tag} {cfg.name} {spec}: rank {rank}'s prefill logits differ "
                             "from rank 0's")
         for other, theirs in zip(ranks, every):
             if other["rows"] == [rows.start, rows.stop] and not torch.equal(theirs, got["dec"]):
-                problems.append(f"tp-ssm {cfg.name} {spec}: rank {rank}'s decode logits differ "
+                problems.append(f"{tag} {cfg.name} {spec}: rank {rank}'s decode logits differ "
                                 "from a rank with its rows")
         if f32:
             for k, e in err.items():
                 if not e <= F32_LOGIT_ATOL:
-                    problems.append(f"tp-ssm {cfg.name} {spec}: split vs one-card {k} logits "
+                    problems.append(f"{tag} {cfg.name} {spec}: split vs one-card {k} logits "
                                     f"max abs diff {e} > {F32_LOGIT_ATOL}")
         if held_cache != plan_cache:
-            problems.append(f"tp-ssm {cfg.name} {spec}: rank {rank} holds {held_cache} cache "
+            problems.append(f"{tag} {cfg.name} {spec}: rank {rank} holds {held_cache} cache "
                             f"bytes, the plan's arithmetic says {plan_cache}")
         if on_card and impl == "kernel" and launches != sites:
-            problems.append(f"tp-ssm {cfg.name} {spec}: {launches} flash launches in the "
+            problems.append(f"{tag} {cfg.name} {spec}: {launches} flash launches in the "
                             f"prefill, want {sites}")
         infos.append(info)
         del got, first, every
@@ -4259,7 +4342,7 @@ def tp_ssm_phase(seed, on_card):
       ranks run (the rehearsal's later steps within SSM_DRIFT_RTOL, 1e-2);
       a prefill of 2,048 tokens (plain attention) and 4 decode
       steps of 8 rows over 4,096 slots filled to 4,088, the logits within
-      F32_LOGIT_ATOL (1e-3, absolute) of one card's (`ssm_serve_run`);
+      F32_LOGIT_ATOL (1e-3, absolute) of one card's (`tp_serve_run`);
       full size, bf16, on (1, 4): zamba2 a 32,768-token prefill (flash
       on each rank's 8 heads of 64 at each of the 6 shared-attention
       sites: 6 launches a rank, the first call held against
@@ -4318,17 +4401,17 @@ def tp_ssm_phase(seed, on_card):
                    seq=knobs["seq"], global_batch=knobs["global_batch"],
                    microbatches=knobs["microbatches"], runs=meshes, step_s_by_rank=every)
         show(dict(tp_ssm=f"{arch} f32 meshes", **rec))
-        serve, model, layout, _ = ssm_serve_run(
-            f"{arch} f32 serve", cut, ("2,2", "1,4"), f32_run, f32_run["tokens"], seed, on_card,
-            dev, SSM_F32_CHECK_ROWS, chunk, problems)
+        serve, model, layout, _ = tp_serve_run(
+            "tp-ssm", f"{arch} f32 serve", cut, ("2,2", "1,4"), f32_run, f32_run["tokens"], seed,
+            on_card, dev, SSM_F32_CHECK_ROWS, chunk, problems)
         del model, layout
         out[arch] = dict(f32_meshes=rec, f32_serve=serve)
         if on_card:
             torch.cuda.empty_cache()
         # full size, bf16, on (1, 4): prefill, decode, then training
         seq = SSM_PREFILL[arch] if on_card else 128
-        (info,), model, layout, whole = ssm_serve_run(
-            f"{arch} full size", full, (f"1,{world}",), run, seq, seed, on_card, dev,
+        (info,), model, layout, whole = tp_serve_run(
+            "tp-ssm", f"{arch} full size", full, (f"1,{world}",), run, seq, seed, on_card, dev,
             DECODE_CHECK_ROWS, chunk, problems)
         launches += info["flash_launches"]
         fk = SSM_FULL_TRAIN[arch] if on_card else dict(knobs, global_batch=4)
@@ -4369,6 +4452,157 @@ def tp_ssm_phase(seed, on_card):
     if problems:
         fail("; ".join(problems))
     return dict(out, launches=launches, flash=entry)
+
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+# the f32 runs against one card: full width, 4 encoder and 4 decoder layers
+ENCDEC_LAYERS = 4
+# (seq: frames and as many decoder tokens, global batch, microbatches,
+# steps, lr) of the f32 runs, the card's and the rehearsal's
+ENCDEC_RUN = dict(seq=2048, global_batch=8, microbatches=2, steps=3, lr=1e-3)
+ENCDEC_REHEARSAL = dict(ENCDEC_RUN, seq=32)
+# the full-size train steps: train_4k cut to 4 rows x 2,048
+ENCDEC_FULL_TRAIN = dict(ENCDEC_RUN, global_batch=4)
+# the prefill's decoder tokens beside its frames (f32: 2,048 frames; full
+# size: 32,768, phase 15's) and the decode's encoder slots (its self
+# slots' count): the card's and the rehearsal's
+TP_ENCDEC_DEC_TOKENS = {"f32": 256, "full": ENCDEC_DEC_TOKENS}
+ENCDEC_REHEARSAL_DEC_TOKENS = 16
+
+
+def tp_encdec_phase(seed, on_card):
+    """Phase 25, inside `process_group`: the enc-dec family on the split
+    plan (each rank its query and KV heads in the encoder's
+    self-attention, the decoder's self-attention and cross-attention, its
+    ff columns and vocab rows over "model"; one layer gathered over
+    "data" at a time; in decode its block of each self KV cache's
+    sequence and of the encoder output's sequence over "model"), seeded,
+    at four ranks (smoke sizes in the rehearsal):
+
+      f32, full width, 4 encoder and 4 decoder layers, on (2, 2) and on
+      (1, 4): 3 train steps of 8 rows x 2,048 frames and 2,048 tokens in 2
+      microbatches, the specs' bytes held, every step's loss within
+      TRAIN_LOSS_RTOL (1e-4, relative) of rank 0's one-card run of the
+      same global batch in as many microbatches as the mesh's "data"
+      ranks run; a prefill of 2,048 frames and 256 decoder tokens (plain
+      attention) and 4 decode steps of 8 rows over 4,096 encoder slots
+      and 4,096 self slots filled to 4,088, the logits within
+      F32_LOGIT_ATOL (1e-3, absolute) of one card's (`tp_serve_run`);
+      full size, bf16, on (1, 4): a prefill of 32,768 frames and 1,024
+      decoder tokens (flash on each rank's 4 heads of 64 at the 24
+      encoder, 24 decoder and 24 cross sites: 72 launches a rank, the
+      first call of each of the three shapes held against attention_ref
+      in blocks) and 4 decode steps over 8 rows x 32,768 encoder slots
+      and 32,768 self slots filled to 32,760, against one card's prefill
+      and rows 0 and 1 (printed: random bf16 weights, phase 15); then 3
+      train steps of 4 x 2,048 in 2 microbatches, the specs' bytes held,
+      finite, s a step and the peak printed; on the card flash timed at
+      the encoder's shape a rank (BH 4, S 32,768, D 64, non-causal) and
+      the cross-attention's (SQ 1,024, SKV 32,768).
+
+    Every cache's bytes are `cache_specs`' (`plan_state_bytes`), the
+    self KV caches' and the encoder output's. Every part runs; the phase
+    then fails if a check did. Returns rank 0's records and the flash
+    launches."""
+    import dataclasses
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs import ARCHS
+    from repro_torch.train import init_state
+    world, rank = tdist.get_world_size(), tdist.get_rank()
+    if world != 4:
+        fail(f"tp-encdec runs on 4 ranks, not {world}")
+    dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))) if on_card else "cpu"
+    show = shower(rank)
+    chunk = PLAIN_CHUNK if on_card else 64
+    if on_card:        # every rank builds before the first collective, not inside one
+        from repro_torch.kernels import _build
+        _build.build_all(["flash_attention"])
+    full = ARCHS[ENCDEC_ARCH] if on_card else ARCHS[ENCDEC_ARCH].smoke()
+    knobs = ENCDEC_RUN if on_card else ENCDEC_REHEARSAL
+    dec_tokens = TP_ENCDEC_DEC_TOKENS if on_card else dict.fromkeys(
+        TP_ENCDEC_DEC_TOKENS, ENCDEC_REHEARSAL_DEC_TOKENS)
+    base = F32_RUN if on_card else F32_REHEARSAL
+    f32_run = dict(base, rows=8, steps=4, dec_tokens=dec_tokens["f32"], enc_len=base["slots"])
+    decode = DECODE_RUN if on_card else DECODE_REHEARSAL
+    run = dict(decode, dec_tokens=dec_tokens["full"], enc_len=decode["slots"])
+    cut = dataclasses.replace(full, n_enc_layers=ENCDEC_LAYERS, n_dec_layers=ENCDEC_LAYERS,
+                              dtype="float32")
+    problems = []
+    # f32, cut depth: training on (2, 2) and (1, 4) against one card
+    meshes, one_card = {}, {}
+    for spec in ("2,2", "1,4"):
+        mb = knobs["microbatches"] * int(spec.split(",")[0])
+        r = moe_mesh_run(cut, spec, knobs, seed, on_card, dev)
+        if mb not in one_card:
+            one_card[mb] = moe_one_card_losses(cut, knobs, mb, seed, dev, on_card)
+        r.update(one_card_losses=one_card[mb])
+        r["apart"] = [abs(x - w) / abs(w) for x, w in zip(r["losses"], one_card[mb])]
+        meshes[spec] = r
+        if r["held_bytes"] != r["spec_bytes"] or not all(map(math.isfinite, r["losses"])):
+            problems.append(f"tp-encdec {spec} f32: rank {rank} holds {r['held_bytes']} bytes "
+                            f"(the specs give {r['spec_bytes']}), losses {r['losses']}")
+        if not all(a <= TRAIN_LOSS_RTOL for a in r["apart"]):
+            problems.append(f"tp-encdec {spec} f32: losses {r['losses']} vs one card's "
+                            f"{one_card[mb]}")
+    every = [None] * world
+    tdist.all_gather_object(every, {k: v["step_s"] for k, v in meshes.items()})
+    rec = dict(model=full.name, layers=[cut.n_enc_layers, cut.n_dec_layers],
+               card=smi_line(on_card), seq=knobs["seq"], global_batch=knobs["global_batch"],
+               microbatches=knobs["microbatches"], runs=meshes, step_s_by_rank=every)
+    show(dict(tp_encdec="f32 meshes", **rec))
+    serve, model, layout, _ = tp_serve_run(
+        "tp-encdec", "f32 serve", cut, ("2,2", "1,4"), f32_run, f32_run["tokens"], seed,
+        on_card, dev, SSM_F32_CHECK_ROWS, chunk, problems)
+    del model, layout
+    out = dict(f32_meshes=rec, f32_serve=serve)
+    if on_card:
+        torch.cuda.empty_cache()
+    # full size, bf16, on (1, 4): prefill, decode, then training
+    seq = dict(FAMILY_RUNS)[ENCDEC_ARCH] if on_card else 128
+    (info,), model, layout, whole = tp_serve_run(
+        "tp-encdec", "full size", full, (f"1,{world}",), run, seq, seed, on_card, dev,
+        DECODE_CHECK_ROWS, chunk, problems)
+    fk = ENCDEC_FULL_TRAIN if on_card else dict(knobs, global_batch=4)
+    state = init_state(model)
+    state.layout = layout
+    trained = moe_train_steps(model, state, full, fk, dev, on_card)
+    trained.update(spec_bytes=spec_bytes(whole, layout), seq=fk["seq"],
+                   global_batch=fk["global_batch"], microbatches=fk["microbatches"],
+                   whole_state_gb=sum(n * (s + 8) for n, s in whole.values()) / 1e9)
+    every = [None] * world
+    tdist.all_gather_object(every, dict(step_s=trained["step_s"], peak_gb=trained["peak_gb"]))
+    trained["by_rank"] = every
+    info["train"] = trained
+    out["full"] = info
+    show(dict(tp_encdec="full size: train", card=smi_line(on_card), **trained))
+    if trained["held_bytes"] != trained["spec_bytes"] or not all(
+            map(math.isfinite, trained["losses"])):
+        problems.append(f"tp-encdec full size: rank {rank} holds {trained['held_bytes']} bytes "
+                        f"(the specs give {trained['spec_bytes']}), losses {trained['losses']}")
+    del model, state, layout
+    if on_card:
+        torch.cuda.empty_cache()
+    entry = None
+    if on_card and rank == 0:      # flash at a rank's shapes: 4 heads of 64, 32K frames
+        from repro_torch.kernels.flash_attention.kernel import flash_attention
+        heads, frames = full.n_heads // world, dict(FAMILY_RUNS)[ENCDEC_ARCH]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        q, k, v = (torch.randn((heads, frames, full.hd), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        err = max(r["max_abs_err"] for r in info["flash_calls_held"])
+        entry = flash_entry(q, k, v, flash_attention(q, k, v, causal=False), chunk, err,
+                            causal=False)
+        qc = q[:, :ENCDEC_DEC_TOKENS].contiguous()
+        cross = flash_entry(qc, k, v, flash_attention(qc, k, v, causal=False), chunk, err,
+                            causal=False)
+        out["flash_cross"] = cross
+        show(dict(tp_encdec="flash at a rank's cross shape", **cross))
+        del q, k, v, qc
+    tdist.barrier()
+    if problems:
+        fail("; ".join(problems))
+    return dict(out, launches=info["flash_launches"], flash=entry)
 
 # --------------------------------------------------------------------------
 # offline: edge-list I/O, the analysis CLI, the census against the dry run
@@ -4540,16 +4774,16 @@ def dry_run_of(arch, full, layers, world, mesh, seq, global_batch, microbatches)
 
 
 def dist_only(args, on_card):
-    """Phases 16, 17, 19, 21, 22, 23 and 24 alone (`--dist-only train`:
-    phase 19 alone; `--dist-only tp`: phase 21 alone; `--dist-only
-    decode`: phase 22 alone; `--dist-only moe`: phase 23 alone;
-    `--dist-only ssm`: phase 24 alone; 23 and 24 need 4 ranks and are
-    skipped by a bare `--dist-only` at another count): every rank builds
-    rmat(--scale) on its card (cuda:LOCAL_RANK under torchrun) and its
-    cuda results, then runs the phases over all ranks in one process
+    """Phases 16, 17, 19 and 21 to 25 alone (`--dist-only train`: phase 19
+    alone; `--dist-only tp`: phase 21 alone; `--dist-only decode`: phase
+    22 alone; `--dist-only moe`: phase 23 alone; `--dist-only ssm`: phase
+    24 alone; `--dist-only encdec`: phase 25 alone; 23 to 25 need 4 ranks
+    and are skipped by a bare `--dist-only` at another count): every rank
+    builds rmat(--scale) on its card (cuda:LOCAL_RANK under torchrun) and
+    its cuda results, then runs the phases over all ranks in one process
     group. On the card rank 0 prints a {"kernels": [...]} line of
-    flash_attention.bf16 with the launches of phases 21, 23 and 24 when
-    any ran."""
+    flash_attention.bf16 with the launches of phases 21, 23, 24 and 25
+    when any ran."""
     import torch
     from repro_torch.graph import rmat
     t0 = time.perf_counter()
@@ -4628,9 +4862,22 @@ def dist_only(args, on_card):
                   f"{statistics.mean(x['train']['step_s'][1:]):.3f} s")
         elif args.dist_only == "all":
             phase("tp-ssm", time.perf_counter(), f"skipped: it runs on 4 ranks, not {ranks}")
+        encdec = None
+        if args.dist_only == "encdec" or (args.dist_only == "all" and ranks == "4"):
+            t0 = time.perf_counter()
+            encdec = tp_encdec_phase(args.seed, on_card)
+            e = encdec["full"]
+            phase("tp-encdec", t0, f"ranks {ranks}: seamless-m4t-large-v2 f32 on (2, 2) and "
+                  f"(1, 4) == one card; at full size on (1, 4) prefill {e['prefill_s']:.3f} s "
+                  f"({e['flash_launches']} flash launches), decode "
+                  f"{statistics.mean(e['decode_ms_per_step'][1:]):.1f} ms a step over "
+                  f"{e['enc_len']} encoder slots, train "
+                  f"{statistics.mean(e['train']['step_s'][1:]):.3f} s a step")
+        elif args.dist_only == "all":
+            phase("tp-encdec", time.perf_counter(), f"skipped: it runs on 4 ranks, not {ranks}")
     if int(os.environ.get("RANK", 0)) == 0:
         flash = tp["flash"] if tp is not None else None
-        for other in (moe, ssm):
+        for other in (moe, ssm, encdec):
             if other is not None and other["flash"] is not None:
                 if flash is None:
                     flash = other["flash"]
@@ -4649,11 +4896,11 @@ def main(argv=None):
     ap.add_argument("--trace", action="store_true",
                     help="profile one more call of each cuda run (phase 7)")
     ap.add_argument("--dist-only", nargs="?", const="all",
-                    choices=("all", "train", "tp", "decode", "moe", "ssm"),
-                    help="the graph, its cuda results and phases 16, 17, 19, 21, 22, 23 and 24 "
+                    choices=("all", "train", "tp", "decode", "moe", "ssm", "encdec"),
+                    help="the graph, its cuda results and phases 16, 17, 19 and 21 to 25 "
                          "alone ('train': phase 19 alone, 'tp': phase 21 alone, 'decode': phase "
-                         "22 alone, 'moe': phase 23 alone, 'ssm': phase 24 alone; under "
-                         "torchrun: one rank a card); not a smoke run")
+                         "22 alone, 'moe': phase 23 alone, 'ssm': phase 24 alone, 'encdec': "
+                         "phase 25 alone; under torchrun: one rank a card); not a smoke run")
     args = ap.parse_args(argv)
     on_card = args.device == "cuda"
 

@@ -25,8 +25,8 @@ the layout gives the model (`Layout.plan_for`; the record's "plan"):
               outside them multiplies matrices. On the "gathered" plan the
               collectives run once a step (the gathers at its start, the
               gradients' reduce-scatter and the norm's all-reduce at its
-              end) and are not scaled. On the "split" plan (the dense,
-              MoE, hybrid and xLSTM families) each microbatch gathers
+              end) and are not scaled. On the "split" plan (every family)
+              each microbatch gathers
               every layer over "data" (one all-gather a layer and dtype,
               twice under remat), reduces its heads', ff columns',
               experts' and channels' products over "model" and
@@ -45,15 +45,17 @@ the layout gives the model (`Layout.plan_for`; the record's "plan"):
               vocab block, each layer gathered over "data" as it runs,
               and its block of the cache (the KV sequence over "model",
               as `sharding.cache_specs` splits it; a recurrent state's
-              heads or channels); on the gathered plan the parameters
-              gathered whole first and the whole sequence.
+              heads or channels; the enc-dec family's encoder output, its
+              block of the encoder sequence); on the gathered plan the
+              parameters gathered whole first and the whole sequence.
 
 On the split plan a rank holds one layer whole at most (its block of the
 experts, in an MoE layer; a Mamba2 layer's in_proj and conv_w, an sLSTM
 layer's wo), and computes its share of the heads, ff columns, experts,
-recurrent channels and vocab; on the gathered plan (the enc-dec family)
-every parameter is in its peak and its collective bytes, and the "model"
-ranks repeat one another's work. The kernels of
+recurrent channels and vocab; on the gathered plan (no family's by
+default: `Layout._plan = "gathered"`, to compare the two) every parameter
+is in its peak and its collective bytes, and the "model" ranks repeat one
+another's work. The kernels of
 the port launch through ctypes and are invisible to the census, so every
 program runs the plain "chunked" attention, as the reference's dry run
 does.

@@ -25,12 +25,14 @@ How a rank computes with its blocks is the layout's plan
 (`Layout.plan_for`), what GSPMD derives from the same specs in the
 reference:
 
-  * "split" (the dense, MoE, hybrid and xLSTM families, `SplitPlan`):
-    each rank runs its block of query heads, of ff columns, of experts
-    (an MoE layer's [E, ...] leaves, E/m a rank; its shared experts' ff
-    columns), of Mamba2 and mLSTM heads, of sLSTM channels and of vocab
-    rows over "model" and its rows of the batch over the batch axes; each
-    layer's weights are gathered over "data" when the layer runs, in one
+  * "split" (every family: dense, MoE, hybrid, xLSTM and enc-dec,
+    `SplitPlan`): each rank runs its block of query heads (the enc-dec
+    family's encoder self-attention, decoder self-attention and
+    cross-attention alike), of ff columns, of experts (an MoE layer's
+    [E, ...] leaves, E/m a rank; its shared experts' ff columns), of
+    Mamba2 and mLSTM heads, of sLSTM channels and of vocab rows over
+    "model" and its rows of the batch over the batch axes; each layer's
+    weights are gathered over "data" when the layer runs, in one
     all-gather a dtype (inside its remat, so the recompute gathers
     again), and freed after it, and each gradient is reduce-scattered
     into the rank's block by the backward of that gather
@@ -39,13 +41,17 @@ reference:
     the KV cache by `cache_specs` (its rows, and its block of the
     sequence over "model"), and attention combines the ranks' blocks in a
     softmax across "model" (`models.attention.split_attention_decode`);
-    a recurrent state holds the rank's heads or channels.
-  * "gathered" (the enc-dec family): the step gathers every parameter
+    a recurrent state holds the rank's heads or channels; the enc-dec
+    cache's encoder output holds the rank's block of the encoder
+    sequence, and cross-attention combines those blocks the same way
+    (`models.attention.split_cross_decode`).
+  * "gathered" (no family by default; `Layout._plan = "gathered"` puts a
+    model on it, to compare the two): the step gathers every parameter
     whole over the axes that split it, runs this rank's rows,
     reduce-scatters each gradient into this rank's block
     (`reduce_grads`) and updates its blocks. Every rank of a "model"
     group then computes the same rows, and its peak holds the whole
-    model (ROADMAP item 15d-ii).
+    model.
 
 The collectives are hand-written over the mesh's per-axis sub-groups.
 """
@@ -70,7 +76,7 @@ _IN_OUT = {"wq", "wk", "wv", "wz", "wi", "wf", "wo_gate", "in_proj",
 _OUT_IN = {"wo", "out", "out_proj", "w_down"}   # [X, d] → P(model, data)
 _STACKED = set(STACKED)
 _ONE = Mesh1D(group=None, size=1, rank=0, device=None)     # an axis of one rank: no collective
-SPLIT_FAMILIES = ("dense", "moe", "hybrid", "ssm")  # the families a rank computes split
+SPLIT_FAMILIES = ("dense", "moe", "hybrid", "ssm", "encdec")  # the families a rank computes split
 
 
 class P(tuple):
@@ -240,8 +246,8 @@ class Layout:
 
     def plan_for(self, cfg) -> str:
         """How a model of `cfg` computes on this layout: "split" for the
-        families of `SPLIT_FAMILIES` (`SplitPlan`), "gathered" for the
-        others."""
+        families of `SPLIT_FAMILIES` (`SplitPlan`), "gathered" for any
+        other, or where the layout's `_plan` says "gathered"."""
         return self._plan or ("split" if cfg.family in SPLIT_FAMILIES else "gathered")
 
     def split_plan(self, cfg, params: dict) -> "SplitPlan":
@@ -506,10 +512,26 @@ class SplitPlan:
                       (`vocab_cross_entropy`; `gather_vocab` for whole
                       logits);
       norms           replicated;
+      enc-dec         the encoder's attention, the decoder's self- and
+                      cross-attention and both stacks' MLPs take the rows
+                      above (`SplitPlan` reads them under `enc_layers.0`
+                      and checks that `dec_layers.0` splits alike);
+                      cross-attention's wk, wv (bk, bv) of the rank's KV
+                      heads project the encoder output through `enter`,
+                      so the ranks' parts of its gradient (each from its
+                      own heads) add into the encoder's; the embedding
+                      also unembeds (the family ties) through the vocab
+                      split;
       KV cache        the rank's rows of the batch, and its slots
                       [S·r/m, S·(r+1)/m) of a cache of S slots where m
                       divides S, else all S (`cache_slots`: the rule of
                       `cache_specs`, guard included);
+      encoder output  (the enc-dec decode cache) the rank's rows and its
+                      slots [S·r/m, S·(r+1)/m) of an encoder sequence of
+                      S where m divides S, else all S (`enc_slots`, the
+                      rule of `cache_specs`); decode's cross-attention
+                      projects them with wk and wv of every KV head,
+                      gathered over "model" (`every_kv_head`);
       recurrent state the rank's rows and: Mamba2's h its heads and conv
                       its x channels with B and C whole; mLSTM's h its
                       heads, m and n whole; sLSTM's c, n, m its channels
@@ -554,7 +576,10 @@ class SplitPlan:
             return n * r // m, n * (r + 1) // m
 
         h, hkv, ff = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
-        dense = "shared_attn" if cfg.family == "hybrid" else "layers.0"   # attention and MLP
+        dense = {"hybrid": "shared_attn", "encdec": "enc_layers.0"}.get(cfg.family,
+                                                                         "layers.0")
+        if cfg.family == "encdec":
+            self._check_encdec(specs, m)
         self.heads = split(f"{dense}.attn.wq", 1) and h >= m
         self.ff = split(f"{dense}.mlp.w_gate", 1)
         self.vocab = split("embed", 0)
@@ -592,6 +617,22 @@ class SplitPlan:
         self.mlstm_heads = block(h) if self.mlstm else (0, h)
         self.slstm = split("slstm.0.out", 0)
         self.channels = block(cfg.d_model) if self.slstm else (0, cfg.d_model)
+
+    def _check_encdec(self, specs, m):
+        """Raises unless the decoder's self-attention, cross-attention and
+        MLP split over "model" as the encoder's attention and MLP do: the
+        plan takes one block of heads and of ff columns for all of them."""
+        def model_dims(name):
+            return [m > 1 and "model" in _axes(e) for e in specs[name]]
+        pairs = [(f"enc_layers.0.attn.{n}", f"dec_layers.0.{block}.{n}")
+                 for block in ("self_attn", "cross_attn")
+                 for n in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")]
+        pairs += [(f"enc_layers.0.mlp.{n}", f"dec_layers.0.mlp.{n}")
+                  for n in ("w_gate", "w_up", "w_down")]
+        for enc, dec in pairs:
+            if enc in specs and (dec not in specs or model_dims(enc) != model_dims(dec)):
+                raise ValueError(f"{self.cfg.name}: {dec} splits over {m} model ranks unlike "
+                                 f"{enc}; the split plan cannot run its decoder")
 
     # -- leaves ----------------------------------------------------------------
     def _data_dim(self, p):
@@ -791,17 +832,42 @@ class SplitPlan:
             norm=self._split_norm(p.norm, lo, hi), **w)
 
     # -- the KV cache (decode) ---------------------------------------------------
+    def _sequence_block(self, name, shape) -> tuple:
+        """The rank's block [lo, hi) of dim 1 of a cache leaf `name` of
+        `shape` by `cache_specs`' rule, guard included: all of it where
+        the rule leaves dim 1 whole."""
+        length = shape[1]
+        spec = _cache_rule(name, shape, None, dict(self.layout.mesh.shape))
+        if self.model.size == 1 or "model" not in _axes(spec[1]):
+            return 0, length
+        step = length // self.model.size
+        return self.model.rank * step, (self.model.rank + 1) * step
+
     def cache_slots(self, max_len: int) -> tuple:
         """The slots [lo, hi) of a KV cache of `max_len` slots this rank
         holds: its block of the sequence over "model" where `cache_specs`
         splits it (m divides `max_len`), else all of them."""
-        cfg, m = self.cfg, self.model.size
-        spec = _cache_rule("k", (1, max_len, cfg.n_kv_heads, cfg.hd), None,
-                           dict(self.layout.mesh.shape))
-        if m == 1 or "model" not in _axes(spec[1]):
-            return 0, max_len
-        step = max_len // m
-        return self.model.rank * step, (self.model.rank + 1) * step
+        cfg = self.cfg
+        return self._sequence_block("k", (1, max_len, cfg.n_kv_heads, cfg.hd))
+
+    def enc_slots(self, enc_len: int) -> tuple:
+        """The slots [lo, hi) of an enc-dec cache's encoder output of
+        `enc_len` slots this rank holds: its block of the encoder sequence
+        over "model" where `cache_specs` splits `enc_out` (m divides
+        `enc_len`), else all of them."""
+        return self._sequence_block("enc_out", (1, enc_len, self.cfg.d_model))
+
+    def every_kv_head(self, attn) -> dict:
+        """wk and wv (bk and bv with `qkv_bias`) of every KV head of an
+        `Attention` block, whole over "model" (gathered where "model"
+        splits them; the backward sums the ranks' parts of the gradient):
+        a cross-attention decode projects the rank's block of the encoder
+        output's slots with them (`models.attention.split_cross_decode`)."""
+        cfg = attn.cfg
+        width = cfg.n_kv_heads * cfg.hd
+        names = ("wk", "wv") + (("bk", "bv") if cfg.qkv_bias else ())
+        return {n: self._take(getattr(attn, n), 1 if n.startswith("w") else 0, 0, width)
+                for n in names}
 
     def gather_kv_heads(self, kv):
         """Every KV head from the ranks' blocks (`attention_weights(...,
@@ -850,10 +916,12 @@ class SplitPlan:
         return vocab_embed(t, tokens, self.v[0], self.model)
 
     def logits(self, x, net):
-        """f32 logits of the rank's vocab block (whole without a vocab split)."""
+        """f32 logits of the rank's vocab block (whole without a vocab
+        split), through `net.unembed` where the net has one, else through
+        its embedding (tied: the enc-dec family always unembeds so)."""
         x = self.enter(x, self.vocab)
         lo, hi = self.v
-        if net.cfg.tie_embeddings:
+        if getattr(net, "unembed", None) is None:
             w = self._take(net.embed, 0, lo, hi, True) if self.vocab else self._take(net.embed)
             return (x @ w.T).float()
         w = self._take(net.unembed, 1, lo, hi, True) if self.vocab else self._take(net.unembed)

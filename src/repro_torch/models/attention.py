@@ -16,7 +16,9 @@ KV heads they read: `attention_block` and `_project_qkv` take the head
 counts from the weights they get, so the same code runs a whole block and
 a rank's share of one. Its decode (`split_attention_decode`) holds the
 rank's block of the KV cache's sequence and combines the ranks' blocks in
-one softmax across "model".
+one softmax across "model"; the enc-dec family's cross-attention decode
+(`split_cross_decode`) does the same over the rank's block of the encoder
+output's sequence.
 """
 from __future__ import annotations
 
@@ -236,6 +238,47 @@ def split_attention_decode(p: Attention, x, cache: dict, pos: int, plan):
         o = o[:, plan.q[0]:plan.q[1]]
     cache["length"] = length + 1
     return plan.leave(o.reshape(b, 1, -1) @ w.wo, w.split), cache
+
+
+def split_cross_decode(p: Attention, x, enc_out, enc_len: int, plan):
+    """The cross-attention of one decoder token of a rank under a split
+    plan (`launch.sharding.SplitPlan`) over its block of the encoder
+    output, as the reference decodes it: K and V projected from the
+    cached encoder output again at every step, no RoPE, every slot valid.
+    Plain torch: the flash kernel returns no log-sum-exp to combine
+    across ranks.
+
+    x: [B, 1, d], the normed input; enc_out: [B, hi - lo, d], the rank's
+    slots [lo, hi) of an encoder output of `enc_len` slots
+    (`plan.enc_slots`). Where the slots are split, every rank projects
+    its slots with wk and wv of every KV head (`plan.every_kv_head`),
+    scores all H query heads (gathered over "model") against them, and
+    the ranks' blocks meet in one softmax (`_softmax_over_slots`); where
+    they are not, every rank holds every slot and attends with its own
+    heads over the KV heads they read. The output of its heads passes its
+    rows of wo and `plan.leave`. Returns out [B, 1, d], whole."""
+    cfg = p.cfg
+    b, hd = x.shape[0], cfg.hd
+    lo, hi = plan.enc_slots(enc_len)
+    if enc_out.shape[1] != hi - lo:
+        raise ValueError(f"an encoder output block of {enc_out.shape[1]} slots, not the "
+                         f"plan's [{lo}, {hi}) of {enc_len}")
+    split = hi - lo < enc_len
+    w = plan.attention_weights(p)
+    q, _, _ = _project_qkv(w, plan.enter(x, w.split), None)
+    kv = plan.every_kv_head(p) if split else vars(w)
+    q = plan.gather_heads(q[:, 0]) if split else q[:, 0]          # [B, heads, D]
+    nk = kv["wk"].shape[-1] // hd
+    k = (enc_out @ kv["wk"]).reshape(b, hi - lo, nk, hd)
+    v = (enc_out @ kv["wv"]).reshape(b, hi - lo, nk, hd)
+    if cfg.qkv_bias:
+        k, v = k + kv["bk"].reshape(nk, hd), v + kv["bv"].reshape(nk, hd)
+    qg = q.float().reshape(b, nk, q.shape[1] // nk, hd)        # [B, Hkv, G, D]
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k.float()) * (1.0 / (hd ** 0.5))
+    o = _softmax_over_slots(s, v, plan if split else None).reshape(b, -1, hd)
+    if split and w.split:
+        o = o[:, plan.q[0]:plan.q[1]]
+    return plan.leave(o.reshape(b, 1, -1) @ w.wo, w.split)
 
 
 def _softmax_over_slots(s, v, plan=None):

@@ -6,8 +6,9 @@ tree as a copy. Inits draw from a `torch.Generator` with the reference's
 distributions (not its numbers: the two generators differ). `remat_call`
 is the reference's `jax.checkpoint` on a layer body. The reference's
 activation-sharding hooks (`set_constraint_mesh`, `maybe_constrain`)
-become the split plan of a dense or MoE model (`launch.sharding.SplitPlan`),
-installed per model by `Transformer.set_constraint_mesh`: `MLP` and
+become the split plan of a model (`launch.sharding.SplitPlan`), installed
+per model by `Transformer.set_constraint_mesh` or
+`EncDec.set_constraint_mesh`: `MLP` and
 `Attention` take it as `plan` and run the rank's ff columns and heads
 through it; with no plan they compute what they always did.
 """

@@ -10,15 +10,16 @@ branch); with one microbatch they stay in the parameter dtype, as
 
 A state placed on a mesh by `launch.sharding` carries its `layout`: each
 rank then holds only its block of every sharded parameter, m and v. On
-the split plan (a dense or MoE model: `launch.sharding.SplitPlan`,
+the split plan (a model of any family: `launch.sharding.SplitPlan`,
 installed on the model by `place`) the step never gathers a whole model:
 the forward and backward of this rank's rows run its heads, ff columns
-(or experts and shared-expert columns) and vocab block, each layer
+(or experts and shared-expert columns, or recurrent heads and channels)
+and vocab block, each layer
 gathered over "data" as it runs; the loss is
 `vocab_cross_entropy` of the rank's vocab block; each microbatch's
 gradient blocks, already reduce-scattered by the backward, accumulate into
 f32 blocks (`Layout.sum_blocks` sums what remains over the batch axes). On
-the gathered plan (the hybrid, xLSTM and enc-dec families) the step gathers the whole
+the gathered plan (`Layout._plan = "gathered"`) the step gathers the whole
 parameters, runs this rank's rows, reduce-scatters each gradient's batch
 mean into this rank's block and shards the parameters back. Either way it
 takes the global norm from the blocks and updates only the blocks.

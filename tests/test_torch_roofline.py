@@ -273,15 +273,28 @@ def test_split_recurrent_cuts_a_ranks_flops_and_bytes(monkeypatch, name, kind):
     assert split["held_bytes"] == gathered["held_bytes"]
 
 
-def test_encdec_stays_gathered():
-    """seamless-m4t-large-v2 (enc-dec) is not on the split plan yet
-    (ROADMAP item 15d-ii): its dry-run record names the gathered plan."""
+def test_encdec_stays_gathered(monkeypatch):
+    """seamless-m4t-large-v2 (enc-dec) no longer stays on the gathered
+    plan: its dry-run decode record names the split plan, and a rank of
+    (2, 4) holds its rows and its quarter of the self KV caches' slots and
+    of the encoder output's slots, the bytes `cache_specs` gives, far
+    below the gathered plan's whole model and whole sequence."""
     cfg = dataclasses.replace(configs.ARCHS["seamless-m4t-large-v2"].smoke(), n_enc_layers=1,
                               n_dec_layers=1)
     cell = configs.base.ShapeCell("decode_smoke", 64, 8, "decode")
     with dryrun.fake_world(8):
-        rec = dryrun.serve_census(cfg, cell, lt.make_mesh("2,4", device="meta"))
-    assert rec["plan"] == "gathered"
+        mesh = lt.make_mesh("2,4", device="meta")
+        split = dryrun.serve_census(cfg, cell, mesh)
+        monkeypatch.setattr(sh.Layout, "_plan", "gathered")
+        gathered = dryrun.serve_census(cfg, cell, mesh)
+    assert (split["plan"], gathered["plan"]) == ("split", "gathered")
+    d, hkv, hd = cfg.d_model, cfg.n_kv_heads, cfg.hd
+    item, rows = getattr(torch, cfg.dtype).itemsize, 8 // 2
+    cache = rows * 64 // 4 * (d + 2 * hkv * hd * cfg.n_dec_layers) * item
+    whole = rows * 64 * (d + 2 * hkv * hd * cfg.n_dec_layers) * item
+    held = split["held_bytes"]
+    assert split["memory"]["argument_size_in_bytes"] == held + rows * 8 + cache
+    assert gathered["memory"]["argument_size_in_bytes"] == held + rows * 8 + whole
 
 # --- roofline ------------------------------------------------------------------
 

@@ -281,11 +281,11 @@ def test_silu_gradient_is_the_references(dtype):
 # --------------------------------------------------------------------------
 
 def test_plan_for_the_recurrent_families():
-    """zamba2-1.2b and xlstm-1.3b run the split plan; seamless-m4t-large-v2
-    (enc-dec) stays on the gathered one."""
+    """zamba2-1.2b and xlstm-1.3b run the split plan, as every family now
+    does, seamless-m4t-large-v2 (enc-dec) included."""
     lay = sh.named(None, {}, ())            # plan_for reads the family alone
-    for arch, plan in ((ZAMBA, "split"), (XLSTM, "split"), ("seamless-m4t-large-v2", "gathered")):
-        assert lay.plan_for(configs.ARCHS[arch]) == plan, arch
+    for arch in (ZAMBA, XLSTM, "seamless-m4t-large-v2"):
+        assert lay.plan_for(configs.ARCHS[arch]) == "split", arch
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)

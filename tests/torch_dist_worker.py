@@ -699,6 +699,19 @@ def _mutant_norms(kind):
     return split_norm
 
 
+def leaf_bytes(node, path=""):
+    """path → bytes of every tensor leaf of a decode cache (dicts and lists
+    walked, other leaves left out)."""
+    if isinstance(node, torch.Tensor):
+        return {path: node.numel() * node.element_size()}
+    items = node.items() if isinstance(node, dict) else enumerate(node) \
+        if isinstance(node, list) else ()
+    out = {}
+    for k, v in items:
+        out.update(leaf_bytes(v, f"{path}.{k}" if path else str(k)))
+    return out
+
+
 def run_split_ssm(payload, mesh):
     """payload: [dict(id, arch, layers, arrays, spec, steps, microbatches,
     seq, global_batch, tokens [B, T] or None, max_len, mutant)]. The arch's smoke
@@ -724,16 +737,6 @@ def run_split_ssm(payload, mesh):
 
     def refuse(self, params):
         raise AssertionError("a split step gathered the parameters whole")
-
-    def leaves(node, path=""):
-        if isinstance(node, torch.Tensor):
-            return {path: node.numel() * node.element_size()}
-        items = node.items() if isinstance(node, dict) else enumerate(node) \
-            if isinstance(node, list) else ()
-        out = {}
-        for k, v in items:
-            out.update(leaves(v, f"{path}.{k}" if path else str(k)))
-        return out
     out = {}
     plain_norm = sh.SplitPlan._split_norm
     for c in payload:
@@ -771,7 +774,8 @@ def run_split_ssm(payload, mesh):
                         lg, cache = model.decode_step(t[:, i:i + 1], cache, i)
                         dec.append(host(lg))
                 res.update(prefill=host(prefill), decode=np.stack(dec),
-                           decode_rows=[d_rows.start, d_rows.stop], cache_bytes=leaves(cache))
+                           decode_rows=[d_rows.start, d_rows.stop],
+                           cache_bytes=leaf_bytes(cache))
             step = make_train_step(model, OptimizerConfig(lr=1e-3, warmup_steps=1,
                                                           total_steps=10),
                                    microbatches=c["microbatches"])
@@ -788,6 +792,112 @@ def run_split_ssm(payload, mesh):
         out[c["id"]] = dict(res, history=hist, data_rank=lay.axis("data").rank,
                             not_model_split=unsplit,
                             params=whole if mesh.rank == 0 else None)
+    return out
+
+
+def _mutant_cross(self, x, enc_out, impl, cfg, plan=None):
+    """`DecLayer.cross` with the encoder output projected without
+    `plan.enter`, to show that the tests see it: the forward is exact, but
+    each rank's encoder gets only its own heads' part of the gradient."""
+    from repro_torch.models.attention import attention_block
+    p, q = self.cross_attn, self.ln_x(x, cfg.norm_eps)
+    if plan is not None:
+        p = plan.attention_weights(p)
+        q = plan.enter(q, p.split)                  # enc_out does not pass `plan.enter`
+    b, s, _ = enc_out.shape
+    hkv = p.wk.shape[-1] // cfg.hd
+    k = (enc_out @ p.wk).reshape(b, s, hkv, cfg.hd)
+    v = (enc_out @ p.wv).reshape(b, s, hkv, cfg.hd)
+    h = attention_block(p, q, None, causal=False, impl=impl, kv=(k, v))
+    return x + (h if plan is None else plan.leave(h, p.split))
+
+
+def run_split_encdec(payload, mesh):
+    """payload: [dict(id, arch, layers, arrays, spec, steps, microbatches,
+    seq, global_batch, frames [B, S, d] or None, tokens [B, T], enc_len,
+    max_len, mutant)]. The arch's smoke config at `layers` encoder and
+    `layers` decoder layers in f32, holding the reference's weights
+    (`from_reference`), placed on the mesh by the specs (the split plan)
+    with `Layout.gather_params` made to raise; mutant swaps
+    `DecLayer.cross` for `_mutant_cross`. With frames, first the split
+    prefill's last-token logits of step 0's rows (`impl="chunked"`), then
+    the split encoder output of the rank's rows of `frames` written into
+    `init_cache(rows, max_len, enc_len=S)` by `set_encoder_output` and
+    `decode_step` of each of the T tokens: its logits [T, rows, V], the
+    bytes of each cache leaf by path, its encoder slots and its block of
+    the encoder output. Then `steps` train steps of `launch.train`'s
+    data: the losses, grad norms and held bytes, the plan's choices, the
+    rank's blocks of the leaves "model" does not split (with its "data"
+    coordinate) and (rank 0) every parameter gathered."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import train as lt
+    from repro_torch.launch.mesh import effective_batch_axes
+    from repro_torch.models import encdec
+    from repro_torch.models.weights import from_reference
+    from repro_torch.train import OptimizerConfig, init_state, make_train_step
+
+    def refuse(self, params):
+        raise AssertionError("a split step gathered the parameters whole")
+    out = {}
+    plain_cross = encdec.DecLayer.cross
+    for c in payload:
+        cfg = dataclasses.replace(ARCHS[c["arch"]].smoke(), n_enc_layers=c["layers"],
+                                  n_dec_layers=c["layers"], dtype="float32")
+        m = lt.make_mesh(c["spec"], device="cpu")
+        model = from_reference(c["arrays"], cfg, device="cpu")
+        state = init_state(model)
+        gb = c["global_batch"]
+        lay = sh.named(m, sh.param_specs(state.params, dict(m.shape)),
+                       effective_batch_axes(m, gb))
+        lay.gather_params = types.MethodType(refuse, lay)
+        if c["mutant"]:
+            encdec.DecLayer.cross = _mutant_cross
+        try:
+            state = sh.place(state, lay)
+            plan = model.net.plan
+            dc = lt.data_config(cfg, c["seq"], gb)
+            rows = lay.rows(gb)
+            res = dict(ran=lay.plan_for(cfg), rows=[rows.start, rows.stop],
+                       batch_axes=lay.batch_axes,
+                       plan={k: getattr(plan, k) for k in (
+                           "heads", "q", "kv", "own_q", "own_kv", "ff", "f", "vocab", "v")})
+            frames = c["frames"]
+            if frames is not None:
+                d_rows = lay.rows(frames.shape[0])
+                with torch.inference_mode():
+                    prefill, _ = model(lt.batch_for(cfg, dc, 0, "cpu", rows), impl="chunked",
+                                       last_only=True)
+                    enc = model.net.encode(torch.from_numpy(frames[d_rows]))
+                    cache = model.init_cache(d_rows.stop - d_rows.start, c["max_len"],
+                                             enc_len=c["enc_len"])
+                    model.net.set_encoder_output(cache, enc)
+                    t = torch.from_numpy(c["tokens"][d_rows]).long()
+                    dec = []
+                    for i in range(t.shape[1]):
+                        lg, cache = model.decode_step(t[:, i:i + 1], cache, i)
+                        dec.append(host(lg))
+                res.update(prefill=host(prefill), decode=np.stack(dec),
+                           decode_rows=[d_rows.start, d_rows.stop],
+                           cache_bytes=leaf_bytes(cache), enc_slots=plan.enc_slots(c["enc_len"]),
+                           enc_block=host(cache["enc_out"]), enc_len=cache["enc_len"])
+            step = make_train_step(model, OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                                          total_steps=10),
+                                   microbatches=c["microbatches"])
+            hist = []
+            for i in range(c["steps"]):
+                state, met = step(state, lt.batch_for(cfg, dc, i, "cpu", rows))
+                hist.append(dict(loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+                                 lr=float(met["lr"]), held_bytes=sh.held_bytes(state)))
+        finally:
+            encdec.DecLayer.cross = plain_cross
+        unsplit = {n: host(p.detach()) for n, p in state.params.items()
+                   if not any("model" in sh._axes(e) for _, e in lay._split(n))}
+        whole = {n: host(lay.gather(n, p.detach())) for n, p in state.params.items()}
+        out[c["id"]] = dict(res, history=hist, data_rank=lay.axis("data").rank,
+                            not_model_split=unsplit,
+                            params=whole if mesh.rank == 0 and c["steps"] else None)
     return out
 
 
@@ -823,12 +933,13 @@ def run_gather_dtypes(payload, mesh):
 def run_cases(payload: dict, mesh) -> dict:
     """Each section of the payload ("programs", "exchanges", "gathers",
     "grid", "pods", "tune", "train", "reduce", "moments", "split_functions",
-    "split_steps", "split_decode", "split_moe", "split_ssm", "gather_dtypes"),
-    in that order on every rank."""
+    "split_steps", "split_decode", "split_moe", "split_ssm", "split_encdec",
+    "gather_dtypes"), in that order on every rank."""
     jobs = {"programs": run_programs, "exchanges": run_exchanges, "gathers": run_gathers,
             "grid": run_grid, "pods": run_pods, "tune": run_tune, "train": run_train,
             "reduce": run_reduce, "moments": run_moments,
             "split_functions": run_split_functions, "split_steps": run_split_steps,
             "split_decode": run_split_decode, "split_moe": run_split_moe,
-            "split_ssm": run_split_ssm, "gather_dtypes": run_gather_dtypes}
+            "split_ssm": run_split_ssm, "split_encdec": run_split_encdec,
+            "gather_dtypes": run_gather_dtypes}
     return {k: jobs[k](payload[k], mesh) for k in jobs if k in payload}
