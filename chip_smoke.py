@@ -4,13 +4,14 @@
     python3 chip_smoke.py                          # the smoke run: one card, RMAT scale 22
     python3 chip_smoke.py --trace                  # ... and where each run's time goes
     python3 chip_smoke.py --scale 10 --device cpu  # rehearsal of the plain versions
-    torchrun --nproc-per-node 4 chip_smoke.py --dist-only   # phases 16, 17, 19, 21-25 on 4 cards
+    torchrun --nproc-per-node 4 chip_smoke.py --dist-only   # phases 16, 17, 19, 21-26 on 4 cards
     torchrun --nproc-per-node 4 chip_smoke.py --dist-only train   # phase 19 alone
     torchrun --nproc-per-node 4 chip_smoke.py --dist-only tp      # phase 21 alone
     torchrun --nproc-per-node 4 chip_smoke.py --dist-only decode  # phase 22 alone
     torchrun --nproc-per-node 4 chip_smoke.py --dist-only moe     # phase 23 alone
     torchrun --nproc-per-node 4 chip_smoke.py --dist-only ssm     # phase 24 alone
     torchrun --nproc-per-node 4 chip_smoke.py --dist-only encdec  # phase 25 alone
+    torchrun --nproc-per-node 4 chip_smoke.py --dist-only seq     # phase 26 alone
 
 Phases, each printed with its own seconds; any failure exits non-zero:
 
@@ -189,20 +190,22 @@ graph:
                digest), the winner's dist equal to `cuda`'s.
 
 `--dist-only` runs the graph, its `cuda` baselines and phases 16, 17, 19
-and 21 to 25 alone (`--dist-only train`: phase 19 alone, `--dist-only
+and 21 to 26 alone (`--dist-only train`: phase 19 alone, `--dist-only
 tp`: phase 21 alone, `--dist-only decode`: phase 22 alone, `--dist-only
 moe`: phase 23 alone, `--dist-only ssm`: phase 24 alone, `--dist-only
-encdec`: phase 25 alone; phases 23 to 25 need 4 ranks); under `torchrun
+encdec`: phase 25 alone, `--dist-only seq`: phase 26 alone; phases 23 to
+26 need 4 ranks); under `torchrun
 --nproc-per-node 4 chip_smoke.py --dist-only` (one card a rank, NCCL)
 phase 17 takes the grids (2, 2), (1, 4) and (4, 1) and the pods (2, 2)
 and (4, 1), a pod count above 1 holding `_gather_elems` to the sum of
 each pod's slice run alone; only rank 0 prints. On the card rank 0 ends
 with a {"kernels": [...]} line of flash_attention.bf16 with the launches
-of phases 21, 23, 24 and 25, timed at the first one's shape (BH = 4, S =
-32,768, D = 128; phase 24 alone: BH = 8, D = 64; phase 25 alone: BH = 4,
-S = 32,768, D = 64, non-causal).
+of phases 21, 23, 24, 25 and 26, timed at the first one's shape (BH = 4,
+S = 32,768, D = 128; phase 24 alone: BH = 8, D = 64; phase 25 alone: BH
+= 4, S = 32,768, D = 64, non-causal; phase 26 alone: its last rank's, BH
+= 16, SQ = 8,192 over SKV = 32,768, D = 128, causal).
 
-Phase 18 runs after phase 15, phases 19 and 21 to 25 only under
+Phase 18 runs after phase 15, phases 19 and 21 to 26 only under
 --dist-only:
 
  18. train   — qwen2.5-3b at full width and depth (bf16, seeded init)
@@ -359,7 +362,36 @@ Phase 18 runs after phase 15, phases 19 and 21 to 25 only under
                finite; flash timed at a rank's encoder shape (BH 4, S
                32,768, D 64, non-causal) and cross shape (SQ 1,024, SKV
                32,768). Prints beside nvidia-smi's name and power limit;
-               runs every part and then fails if any check did.
+               runs every part and then fails if any check did;
+ 26. tp-seq  — the sequence split (REPRO_ATTN_SHARD=seq, the reference's
+               context parallelism, set before the plans are built and
+               restored after), seeded, 4 ranks (`--dist-only seq`
+               alone, or a bare `--dist-only` at 4 ranks): each "model"
+               rank attends its contiguous block of S / 4 rows of the
+               sequence with every head over K and V gathered once a
+               layer (causal: over its prefix), its MLP, vocab and decode
+               as before. (a) qwen2.5-3b at full width and 4 layers, f32:
+               3 steps of 8 x 2,048 tokens in 2 microbatches on (1, 4)
+               and (2, 2), losses at TRAIN_LOSS_RTOL of rank 0's one-card
+               run, the specs' bytes, every layer's attention of every
+               microbatch on the rank's rows; a 2,048-token prefill and 4
+               decode steps at F32_LOGIT_ATOL of one card's. (b) bf16 at
+               full size: phase 21's head-split 32,768-token prefill and
+               then the sequence split's on (1, 4): flash on each rank's
+               [16, 8,192] queries against its [16, 8,192·(r+1)] prefix
+               (36 launches a rank), the first call on every rank held
+               against attention_ref in blocks of 1,024 query rows at its
+               own offset, the second call timed on every rank (both
+               splits' seconds by rank printed: the causal imbalance),
+               the last-token logits equal on every rank and within 0.25
+               of one card's. (c) 3 bf16 train steps of 4 x 2,048 at full
+               depth on (1, 4): finite, the specs' bytes, s a step and the
+               peak a rank. (d) seamless-m4t-large-v2 at 4 + 4 layers,
+               f32, on (1, 4): 3 train steps against one card's, a
+               2,048-frame + 256-token prefill and 4 decode steps against
+               one card's (encoder, decoder and cross-attention on the
+               rank's rows). Prints beside nvidia-smi's name and power
+               limit; runs every part and then fails if any check did.
 
 Phase 20 runs after phase 18:
 
@@ -1987,9 +2019,15 @@ def flash_entry(q, k, v, got, chunk, max_abs_err, causal=True):
     ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal), n=10)
     plain_ms = cuda_ms(lambda: attention_ref_in_chunks(q, k, v, chunk, causal), n=2, warm=1)
     # SDPA takes [B, H, S, D]; on 3-d operands it falls back to its
-    # materializing path. Timed as the library call, never used by the port
+    # materializing path. Timed as the library call, never used by the port.
+    # Its is_causal aligns the diagonal top-left; where SQ < SKV the
+    # kernel's mask is the bottom-right one, which SDPA takes as a bias
     q4, k4, v4 = q.view(1, bh, s, d), k.view(1, bh, skv, d), v.view(1, bh, skv, d)
-    lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)  # noqa: E731
+    mask = dict(is_causal=causal)
+    if causal and s != skv:
+        from torch.nn.attention.bias import causal_lower_right
+        mask = dict(attn_mask=causal_lower_right(s, skv))
+    lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, **mask)  # noqa: E731
     lib_err = float((got.float() - lib()[0].float()).abs().max())
     lib_ms = cuda_ms(lib, n=10)
     shape = f"S={s}" if s == skv else f"SQ={s} SKV={skv}"
@@ -3129,9 +3167,29 @@ def train_dist_phase(seed, on_card, trace=False):
 TP_SEQ = 32768
 
 
-def tp_prefill_phase(seed, on_card):
+def _set_attn_shard(value):
+    if value is None:
+        os.environ.pop("REPRO_ATTN_SHARD", None)
+    else:
+        os.environ["REPRO_ATTN_SHARD"] = value
+
+
+@contextlib.contextmanager
+def attn_shard(value):
+    """Inside, REPRO_ATTN_SHARD is `value` (None: unset), which every split
+    plan built inside reads (phase 26: "seq", the sequence split); after,
+    it is as it was, so no other phase sees it."""
+    was = os.environ.get("REPRO_ATTN_SHARD")
+    _set_attn_shard(value)
+    try:
+        yield
+    finally:
+        _set_attn_shard(was)
+
+
+def tp_prefill_phase(seed, on_card, seq=False):
     """Phase 21, inside `process_group`: qwen2.5-3b at full width and depth
-    (bf16, seeded; its smoke config at 256 tokens in the rehearsal), one
+    (bf16, seeded; its smoke config at 512 tokens in the rehearsal), one
     prompt of TP_SEQ tokens, prefilled through the split plan on mesh
     (1, world): each rank runs its H / world query heads (the KV head
     they read gathered over "model"), its ff columns and vocab block,
@@ -3141,7 +3199,14 @@ def tp_prefill_phase(seed, on_card):
     flash once a layer; its last-token logits, gathered over "model",
     equal on every rank and within LM_LOGIT_ATOL of the unsplit one-card
     prefill of the same weights (rank 0's card, broadcast). Returns rank
-    0's figures and the kernels line's flash entry at the rank's shape."""
+    0's figures and the kernels line's flash entry at the rank's shape.
+
+    With `seq` (phase 26) the plan is built under REPRO_ATTN_SHARD=seq:
+    each rank runs its S / world rows of the sequence with all H heads,
+    flash on its [1, H, S / world, D] queries against its causal prefix
+    of (rank + 1)·S / world slots (each rank's held call at its own
+    offset), its ff columns and vocab block as before; the entry is at
+    the last rank's shape, whose prefix is the whole sequence."""
     import torch
     import torch.distributed as tdist
     from repro_torch.configs import ARCHS
@@ -3151,7 +3216,7 @@ def tp_prefill_phase(seed, on_card):
     from repro_torch.launch.mesh import effective_batch_axes
     from repro_torch.models import build
     cfg = ARCHS[TRAIN_ARCH] if on_card else ARCHS[TRAIN_ARCH].smoke()
-    seq = TP_SEQ if on_card else 256
+    tokens = TP_SEQ if on_card else 512
     chunk = PLAIN_CHUNK if on_card else 64
     world, rank = tdist.get_world_size(), tdist.get_rank()
     dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))) if on_card else "cpu"
@@ -3162,7 +3227,7 @@ def tp_prefill_phase(seed, on_card):
     model = build(cfg, device=dev, seed=seed)
     weights = sum(p.numel() * p.element_size() for p in model.parameters())
     toks = torch.from_numpy(np.random.default_rng(seed).integers(
-        0, cfg.vocab, (1, seq))).to(dev)
+        0, cfg.vocab, (1, tokens))).to(dev)
     want = torch.empty((1, 1, cfg.vocab_padded), dtype=torch.float32, device=dev)
     with torch.inference_mode():
         if rank == 0:         # the one-card unsplit prefill
@@ -3172,9 +3237,12 @@ def tp_prefill_phase(seed, on_card):
     params = dict(model.net.named_parameters())
     layout = sh.named(mesh, sh.param_specs(params, dict(mesh.shape)),
                       effective_batch_axes(mesh, 1))
-    if sh.place_model(model, layout) != "split":
-        fail(f"tp-prefill: {cfg.name} is not on the split plan")
+    with attn_shard("seq" if seq else None):
+        if sh.place_model(model, layout) != "split":
+            fail(f"tp-prefill: {cfg.name} is not on the split plan")
     plan = model.net.plan
+    if plan.seq is not seq:
+        fail(f"tp-prefill: the plan's sequence split is {plan.seq}, not {seq}")
     held = sum(p.numel() * p.element_size() for p in model.parameters())
     if on_card:
         torch.cuda.empty_cache()
@@ -3197,11 +3265,13 @@ def tp_prefill_phase(seed, on_card):
         tdist.broadcast(first, src=0)
     held_calls_agree(cfg, "tp-prefill", rows)
     err = float((got - want).abs().max())
-    heads = plan.q[1] - plan.q[0]
-    info = dict(tp_prefill=cfg.name, layers=cfg.n_layers, seq=seq, mesh=f"1,{world}",
+    heads = cfg.n_heads if seq else plan.q[1] - plan.q[0]
+    rows_a_rank = tokens // world if seq else tokens
+    info = dict(tp_prefill=cfg.name, attn_shard="seq" if seq else "heads",
+                layers=cfg.n_layers, seq=tokens, mesh=f"1,{world}",
                 card=smi_line(on_card), heads_a_rank=heads, kv_heads_a_rank=plan.kv[1] - plan.kv[0],
-                own_kv_block=plan.own_kv, flash_calls_held=rows, prefill_s=secs,
-                tokens_per_s=seq / secs, flash_launches=launches,
+                own_kv_block=plan.own_kv, rows_a_rank=rows_a_rank, flash_calls_held=rows,
+                prefill_s=secs, tokens_per_s=tokens / secs, flash_launches=launches,
                 weights_gb=weights / 1e9, held_gb=held / 1e9,
                 peak_gb=peak / 1e9 if on_card else None,
                 peak_above_held_gb=(peak - before) / 1e9 if on_card else None,
@@ -3216,15 +3286,20 @@ def tp_prefill_phase(seed, on_card):
         fail(f"tp-prefill: rank {rank}'s gathered logits differ from rank 0's")
     if not err <= LM_LOGIT_ATOL:
         fail(f"tp-prefill: split vs one-card logits max abs diff {err} > {LM_LOGIT_ATOL}")
-    if on_card and (launches != cfg.n_layers or rows[0]["bh"] != cfg.n_heads // world):
+    if on_card and (launches != cfg.n_layers or rows[0]["bh"] != heads):
         fail(f"tp-prefill: {launches} flash launches (want {cfg.n_layers}) at BH "
-             f"{rows[0]['bh']} (want {cfg.n_heads // world})")
+             f"{rows[0]['bh']} (want {heads})")
+    if rows and (rows[0]["sq"], rows[0]["skv"]) != (rows_a_rank, rows_a_rank * (
+            rank + 1 if seq else 1)):
+        fail(f"tp-prefill: rank {rank}'s first attention ran SQ {rows[0]['sq']} over SKV "
+             f"{rows[0]['skv']}, not its {rows_a_rank} rows over its prefix")
     entry = None
     if on_card and rank == 0:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        q, k, v = (torch.randn((heads, seq, cfg.hd), generator=gen, device=dev)
+        q, k, v = (torch.randn((heads, tokens, cfg.hd), generator=gen, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
+        q = q[:, tokens - rows_a_rank:].contiguous()      # the last rank's rows
         entry = flash_entry(q, k, v, flash_attention(q, k, v, causal=True), chunk,
                             max(r["max_abs_err"] for r in rows))
         entry["launches"] = launches
@@ -4605,6 +4680,185 @@ def tp_encdec_phase(seed, on_card):
     return dict(out, launches=info["flash_launches"], flash=entry)
 
 # --------------------------------------------------------------------------
+# tp-seq: the sequence split of attention over "model" (phase 26, across ranks)
+# --------------------------------------------------------------------------
+
+# (seq, global batch, microbatches, steps, lr) of qwen2.5-3b's f32 runs at
+# SEQ_LAYERS layers, the card's and the rehearsal's; the full-depth bf16
+# steps: train_4k cut to 4 rows x 2,048
+SEQ_LAYERS = 4
+SEQ_RUN = dict(seq=2048, global_batch=8, microbatches=2, steps=3, lr=1e-3)
+SEQ_REHEARSAL = dict(SEQ_RUN, seq=64)
+SEQ_FULL_TRAIN = dict(SEQ_RUN, global_batch=4)
+
+
+@contextlib.contextmanager
+def seq_attention_counted(calls):
+    """Inside, every attention that runs the sequence split appends the
+    shape of its output rows [B, S/m, d] to `calls` (counted where
+    `SplitPlan.seq_join` gathers them)."""
+    from repro_torch.launch import sharding as sh
+    plain = sh.SplitPlan.seq_join
+
+    def counted(self, o):
+        calls.append(tuple(o.shape))
+        return plain(self, o)
+    sh.SplitPlan.seq_join = counted
+    try:
+        yield
+    finally:
+        sh.SplitPlan.seq_join = plain
+
+
+def tp_seq_phase(seed, on_card):
+    """Phase 26, inside `process_group`: the sequence split
+    (REPRO_ATTN_SHARD=seq, set before the plans are built and restored
+    after) on the split plan, seeded, at four ranks (smoke sizes in the
+    rehearsal). Each "model" rank r of m attends its rows [S·r/m,
+    S·(r+1)/m) of the sequence with every head over K and V gathered once
+    a layer, causal over its prefix [0, S·(r+1)/m); the MLP, vocab and
+    decode keep their splits.
+
+      (a) f32, qwen2.5-3b at full width and 4 layers: 3 train steps of 8
+      x 2,048 tokens in 2 microbatches on (1, 4) and on (2, 2), every loss
+      within TRAIN_LOSS_RTOL of rank 0's one-card run, the specs' bytes
+      held, every layer's attention of every microbatch on the rank's
+      rows (twice: remat); then a 2,048-token prefill (plain attention)
+      and 4 decode steps (the head split's) at F32_LOGIT_ATOL of one
+      card's (`tp_serve_run`);
+      (b) bf16, qwen2.5-3b at full width and depth, a 32,768-token
+      prefill on (1, 4) twice in this call, the head split (phase 21)
+      and the sequence split: flash on each rank's [16, 8,192] queries
+      against its [16, 8,192·(r+1)] prefix, 36 launches a rank, each
+      rank's first call held against attention_ref in blocks of 1,024
+      query rows at its own offset, the second call timed on every rank
+      (the causal imbalance), the last-token logits equal on every rank
+      and within LM_LOGIT_ATOL of one card's;
+      (c) bf16, full depth: 3 train steps of 4 x 2,048 tokens on (1, 4),
+      finite, the specs' bytes, s a step and the peak a rank;
+      (d) f32, seamless-m4t-large-v2 at full width and 4 + 4 layers on
+      (1, 4): 3 train steps of 8 x 2,048 frames and tokens against one
+      card's, then a 2,048-frame + 256-token prefill and 4 decode steps
+      against one card's: the encoder (non-causal), the decoder (causal)
+      and cross-attention on the rank's rows.
+
+    Every part runs; the phase then fails if a check did. Returns rank 0's
+    records, the flash launches of (b) and the kernels line's entry at the
+    last rank's shape."""
+    import dataclasses
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs import ARCHS
+    world, rank = tdist.get_world_size(), tdist.get_rank()
+    if world != 4:
+        fail(f"tp-seq runs on 4 ranks, not {world}")
+    dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))) if on_card else "cpu"
+    show = shower(rank)
+    chunk = PLAIN_CHUNK if on_card else 64
+    if on_card:        # every rank builds before the first collective, not inside one
+        from repro_torch.kernels import _build
+        _build.build_all(["flash_attention"])
+    full = ARCHS[TRAIN_ARCH] if on_card else ARCHS[TRAIN_ARCH].smoke()
+    knobs = SEQ_RUN if on_card else SEQ_REHEARSAL
+    cut = dataclasses.replace(full, n_layers=SEQ_LAYERS, dtype="float32")
+    base = F32_RUN if on_card else F32_REHEARSAL
+    f32_run = dict(base, rows=8, steps=4)
+    problems, calls, out = [], [], {}
+
+    def trained(cfg, spec, run, one_card_mb=None):
+        """`cfg` trained on `spec` under the split (`moe_mesh_run`); its
+        losses against one card's where `one_card_mb` is given; the
+        sequence split's attention calls counted."""
+        del calls[:]
+        r = moe_mesh_run(cfg, spec, run, seed, on_card, dev)
+        sites = (cfg.n_enc_layers + 2 * cfg.n_dec_layers if cfg.family == "encdec"
+                 else cfg.n_layers)
+        r.update(seq_attention_calls=len(calls),
+                 seq_attention_calls_want=run["steps"] * run["microbatches"] * sites * 2)
+        tag = f"tp-seq {cfg.name} {spec} {cfg.dtype}"
+        if r["seq_attention_calls"] != r["seq_attention_calls_want"]:
+            problems.append(f"{tag}: {len(calls)} attention calls on the rank's rows, want "
+                            f"{r['seq_attention_calls_want']}")
+        if r["held_bytes"] != r["spec_bytes"] or not all(map(math.isfinite, r["losses"])):
+            problems.append(f"{tag}: rank {rank} holds {r['held_bytes']} bytes (the specs "
+                            f"give {r['spec_bytes']}), losses {r['losses']}")
+        if one_card_mb is not None:
+            want = moe_one_card_losses(cfg, run, one_card_mb, seed, dev, on_card)
+            r.update(one_card_losses=want,
+                     apart=[abs(x - w) / abs(w) for x, w in zip(r["losses"], want)])
+            if not all(a <= TRAIN_LOSS_RTOL for a in r["apart"]):
+                problems.append(f"{tag}: losses {r['losses']} vs one card's {want}")
+        every = [None] * world
+        tdist.all_gather_object(every, dict(step_s=r["step_s"], peak_gb=r["peak_gb"]))
+        r["by_rank"] = every
+        return r
+
+    def served(label, cfg, specs, run, sites):
+        """`tp_serve_run` of `cfg` under the split: a warm-up and a timed
+        prefill a mesh, each running `sites` attention calls on the
+        rank's rows, and the decode."""
+        del calls[:]
+        infos, model, layout, _ = tp_serve_run("tp-seq", label, cfg, specs, run, run["tokens"],
+                                               seed, on_card, dev, SSM_F32_CHECK_ROWS, chunk,
+                                               problems)
+        if len(calls) != 2 * len(specs) * sites:
+            problems.append(f"tp-seq {label}: {len(calls)} attention calls on the rank's rows, "
+                            f"want {2 * len(specs) * sites}")
+        del model, layout
+        if on_card:
+            torch.cuda.empty_cache()
+        return infos
+
+    with attn_shard("seq"), seq_attention_counted(calls):
+        # (a) f32, 4 layers: training on (1, 4) and (2, 2), then the prefill, against one card
+        meshes = {spec: trained(cut, spec, knobs,
+                                knobs["microbatches"] * int(spec.split(",")[0]))
+                  for spec in ("1,4", "2,2")}
+        out["f32_meshes"] = dict(model=full.name, layers=cut.n_layers, card=smi_line(on_card),
+                                 seq=knobs["seq"], global_batch=knobs["global_batch"],
+                                 microbatches=knobs["microbatches"], runs=meshes)
+        show(dict(tp_seq="f32 meshes", **out["f32_meshes"]))
+        out["f32_serve"] = served("f32 serve", cut, ("1,4", "2,2"), f32_run, cut.n_layers)
+    # (b) bf16, full size: the 32K prefill, head split then sequence split
+    heads = tp_prefill_phase(seed, on_card)
+    seq = tp_prefill_phase(seed, on_card, seq=True)
+    out["prefill"] = dict(card=smi_line(on_card), heads=heads, seq=seq,
+                          heads_s_by_rank=[r["prefill_s"] for r in heads["by_rank"]],
+                          seq_s_by_rank=[r["prefill_s"] for r in seq["by_rank"]])
+    show(dict(tp_seq="full size prefill: s a rank, head split against sequence split",
+              card=out["prefill"]["card"], tokens=seq["seq"],
+              heads_s_by_rank=out["prefill"]["heads_s_by_rank"],
+              seq_s_by_rank=out["prefill"]["seq_s_by_rank"]))
+    with attn_shard("seq"), seq_attention_counted(calls):
+        # (c) bf16, full depth: training on (1, 4)
+        fk = SEQ_FULL_TRAIN if on_card else dict(knobs, global_batch=4)
+        out["full_train"] = trained(full, f"1,{world}", fk)
+        show(dict(tp_seq="full size: train", model=full.name, card=smi_line(on_card),
+                  seq=fk["seq"], global_batch=fk["global_batch"],
+                  microbatches=fk["microbatches"], **out["full_train"]))
+        # (d) f32 enc-dec, 4 + 4 layers: training and the prefill against one card
+        efull = ARCHS[ENCDEC_ARCH] if on_card else ARCHS[ENCDEC_ARCH].smoke()
+        ecut = dataclasses.replace(efull, n_enc_layers=ENCDEC_LAYERS,
+                                   n_dec_layers=ENCDEC_LAYERS, dtype="float32")
+        eknobs = ENCDEC_RUN if on_card else ENCDEC_REHEARSAL
+        out["encdec_train"] = trained(ecut, f"1,{world}", eknobs, eknobs["microbatches"])
+        show(dict(tp_seq="enc-dec f32 train", model=efull.name,
+                  layers=[ecut.n_enc_layers, ecut.n_dec_layers], card=smi_line(on_card),
+                  **out["encdec_train"]))
+        dec_tokens = TP_ENCDEC_DEC_TOKENS["f32"] if on_card else ENCDEC_REHEARSAL_DEC_TOKENS
+        out["encdec_serve"] = served(
+            "enc-dec f32 serve", ecut, (f"1,{world}",),
+            dict(f32_run, dec_tokens=dec_tokens, enc_len=base["slots"]),
+            ecut.n_enc_layers + 2 * ecut.n_dec_layers)
+    tdist.barrier()
+    if problems:
+        fail("; ".join(problems))
+    flash = None if seq["flash"] is None else dict(seq["flash"], launches=0)  # the caller adds
+    return dict(out, launches=heads["flash_launches"] + seq["flash_launches"], flash=flash,
+                prefill_s=seq["prefill_s"])
+
+
+# --------------------------------------------------------------------------
 # offline: edge-list I/O, the analysis CLI, the census against the dry run
 # --------------------------------------------------------------------------
 
@@ -4774,16 +5028,16 @@ def dry_run_of(arch, full, layers, world, mesh, seq, global_batch, microbatches)
 
 
 def dist_only(args, on_card):
-    """Phases 16, 17, 19 and 21 to 25 alone (`--dist-only train`: phase 19
+    """Phases 16, 17, 19 and 21 to 26 alone (`--dist-only train`: phase 19
     alone; `--dist-only tp`: phase 21 alone; `--dist-only decode`: phase
     22 alone; `--dist-only moe`: phase 23 alone; `--dist-only ssm`: phase
-    24 alone; `--dist-only encdec`: phase 25 alone; 23 to 25 need 4 ranks
-    and are skipped by a bare `--dist-only` at another count): every rank
-    builds rmat(--scale) on its card (cuda:LOCAL_RANK under torchrun) and
-    its cuda results, then runs the phases over all ranks in one process
-    group. On the card rank 0 prints a {"kernels": [...]} line of
-    flash_attention.bf16 with the launches of phases 21, 23, 24 and 25
-    when any ran."""
+    24 alone; `--dist-only encdec`: phase 25 alone; `--dist-only seq`:
+    phase 26 alone; 23 to 26 need 4 ranks and are skipped by a bare
+    `--dist-only` at another count): every rank builds rmat(--scale) on
+    its card (cuda:LOCAL_RANK under torchrun) and its cuda results, then
+    runs the phases over all ranks in one process group. On the card rank
+    0 prints a {"kernels": [...]} line of flash_attention.bf16 with the
+    launches of phases 21, 23, 24, 25 and 26 when any ran."""
     import torch
     from repro_torch.graph import rmat
     t0 = time.perf_counter()
@@ -4875,9 +5129,22 @@ def dist_only(args, on_card):
                   f"{statistics.mean(e['train']['step_s'][1:]):.3f} s a step")
         elif args.dist_only == "all":
             phase("tp-encdec", time.perf_counter(), f"skipped: it runs on 4 ranks, not {ranks}")
+        seq = None
+        if args.dist_only == "seq" or (args.dist_only == "all" and ranks == "4"):
+            t0 = time.perf_counter()
+            seq = tp_seq_phase(args.seed, on_card)
+            p = seq["prefill"]
+            phase("tp-seq", t0, f"ranks {ranks}: the sequence split; qwen2.5-3b f32 on (1, 4) "
+                  "and (2, 2) == one card; its 32K prefill on (1, 4) "
+                  f"{', '.join(f'{x:.3f}' for x in p['seq_s_by_rank'])} s by rank against the "
+                  f"head split's {', '.join(f'{x:.3f}' for x in p['heads_s_by_rank'])}; train "
+                  f"{statistics.mean(seq['full_train']['step_s'][1:]):.3f} s a step; "
+                  "seamless f32 == one card")
+        elif args.dist_only == "all":
+            phase("tp-seq", time.perf_counter(), f"skipped: it runs on 4 ranks, not {ranks}")
     if int(os.environ.get("RANK", 0)) == 0:
         flash = tp["flash"] if tp is not None else None
-        for other in (moe, ssm, encdec):
+        for other in (moe, ssm, encdec, seq):
             if other is not None and other["flash"] is not None:
                 if flash is None:
                     flash = other["flash"]
@@ -4896,11 +5163,12 @@ def main(argv=None):
     ap.add_argument("--trace", action="store_true",
                     help="profile one more call of each cuda run (phase 7)")
     ap.add_argument("--dist-only", nargs="?", const="all",
-                    choices=("all", "train", "tp", "decode", "moe", "ssm", "encdec"),
-                    help="the graph, its cuda results and phases 16, 17, 19 and 21 to 25 "
+                    choices=("all", "train", "tp", "decode", "moe", "ssm", "encdec", "seq"),
+                    help="the graph, its cuda results and phases 16, 17, 19 and 21 to 26 "
                          "alone ('train': phase 19 alone, 'tp': phase 21 alone, 'decode': phase "
                          "22 alone, 'moe': phase 23 alone, 'ssm': phase 24 alone, 'encdec': "
-                         "phase 25 alone; under torchrun: one rank a card); not a smoke run")
+                         "phase 25 alone, 'seq': phase 26 alone; under torchrun: one rank a "
+                         "card); not a smoke run")
     args = ap.parse_args(argv)
     on_card = args.device == "cuda"
 

@@ -60,6 +60,15 @@ the port launch through ctypes and are invisible to the census, so every
 program runs the plain "chunked" attention, as the reference's dry run
 does.
 
+Two knobs of the reference's dry run: REPRO_MICROBATCHES=<n> sets a train
+cell's microbatches (`_microbatches`); REPRO_ATTN_SHARD=seq builds every
+split plan with the sequence split (`launch.sharding.SplitPlan.seq_rows`:
+a rank's attention runs its S/m rows of the sequence, every head, over
+K and V gathered once a layer), and the census then counts the last
+"model" rank (`counted_rank`), whose causal prefix is the whole sequence;
+the record names the mode ("attn_shard") and the rank ("counted_rank").
+With neither set, every record is as before.
+
 Memory, per rank: `argument_size_in_bytes` is what the rank holds when the
 program starts — its blocks of the parameters and of m and v
 (`sharding.held_bytes`), its inputs and, for decode, its cache;
@@ -70,6 +79,8 @@ returns that it did not take in.
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen2.5-3b --shape train_4k
     python -m repro_torch.launch.dryrun --all [--multi-pod] [--arch ... --shape ...]
+    REPRO_ATTN_SHARD=seq python -m repro_torch.launch.dryrun --arch phi4-mini-3.8b
+    REPRO_MICROBATCHES=4 python -m repro_torch.launch.dryrun --shape train_4k
 """
 from __future__ import annotations
 
@@ -101,15 +112,29 @@ COUNTED_MICROBATCHES = 2
 
 def _microbatches(cell: ShapeCell, data_shards: int) -> int:
     """One sequence per microbatch per data shard (activation and MoE
-    dispatch memory)."""
+    dispatch memory); REPRO_MICROBATCHES, where set, overrides it (the
+    reference's knob)."""
+    if os.environ.get("REPRO_MICROBATCHES"):
+        return int(os.environ["REPRO_MICROBATCHES"])
     return max(cell.global_batch // data_shards, 1)
 
 
+def counted_rank(model_ranks: int) -> int:
+    """The rank whose program the census counts: rank 0, or under the
+    sequence split (REPRO_ATTN_SHARD=seq) the last "model" rank of the
+    first "data" block, rank m - 1 of the row-major mesh, whose causal
+    attention runs over the whole sequence (rank 0's over its first S/m
+    slots: the least work)."""
+    if os.environ.get("REPRO_ATTN_SHARD") == "seq":
+        return model_ranks - 1
+    return 0
+
+
 @contextlib.contextmanager
-def fake_world(size: int):
-    """An in-process fake process group of `size` ranks, this process rank 0."""
+def fake_world(size: int, rank: int = 0):
+    """An in-process fake process group of `size` ranks, this process `rank`."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    tdist.init_process_group("fake", store=FakeStore(), rank=0, world_size=size)
+    tdist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=size)
     try:
         yield
     finally:
@@ -246,8 +271,9 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str = OUT_DIR):
     cell = next(c for c in shape_cells_for(cfg) if c.name == shape)
     mesh_name = "2x16x16" if multi_pod else "16x16"
     world = 512 if multi_pod else 256
+    rank = counted_rank(16)          # make_production_mesh's "model" axis, the last
     t0 = time.perf_counter()
-    with fake_world(world):
+    with fake_world(world, rank):
         mesh = make_production_mesh(multi_pod=multi_pod, device=META)
         if cell.kind == "train":
             data_shards = math.prod(mesh.shape[a] for a in
@@ -260,6 +286,8 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str = OUT_DIR):
            "lower_s": time.perf_counter() - t0 - rec["census_s"], "compile_s": None,
            **rec, "xla_cost_flops_bodies_once": None, "xla_bytes_accessed_bodies_once": None,
            "num_devices": world}
+    if os.environ.get("REPRO_ATTN_SHARD") == "seq":
+        rec.update(attn_shard="seq", counted_rank={"rank": rank, "model": rank, "data": 0})
     rec["roofline"] = roofline.terms(rec)
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, f"{arch}__{shape}__{mesh_name}.json")

@@ -44,7 +44,10 @@ reference:
     a recurrent state holds the rank's heads or channels; the enc-dec
     cache's encoder output holds the rank's block of the encoder
     sequence, and cross-attention combines those blocks the same way
-    (`models.attention.split_cross_decode`).
+    (`models.attention.split_cross_decode`). Under the reference's
+    `REPRO_ATTN_SHARD=seq` (context parallelism) the train step's and the
+    prefill's attention runs instead the rank's block of the sequence
+    over "model", with every head (`SplitPlan.seq_rows`).
   * "gathered" (no family by default; `Layout._plan = "gathered"` puts a
     model on it, to compare the two): the step gathers every parameter
     whole over the axes that split it, runs this rank's rows,
@@ -59,6 +62,7 @@ from __future__ import annotations
 
 import copy
 import math
+import os
 import types
 
 import torch
@@ -537,7 +541,28 @@ class SplitPlan:
                       heads, m and n whole; sLSTM's c, n, m its channels
                       (`models.transformer.Transformer.init_cache`; where
                       they part from `cache_specs` is ROADMAP §3's
-                      deliberate differences).
+                      deliberate differences);
+      sequence split  with `REPRO_ATTN_SHARD=seq` set when the plan is
+                      built (`seq`; the reference's context parallelism,
+                      its constraint of q, k and v to the sequence over
+                      "model"), the train step's and the prefill's
+                      attention (every `Attention.forward` and
+                      `DecLayer.cross`) runs the rank's rows [S·r/m,
+                      S·(r+1)/m) of the sequence with every head: wq, wk,
+                      wv, wo gathered over "model" (the backward summing
+                      the ranks' parts, each from its own rows), bq, bk,
+                      bv and the qk-norm scales through `copy_to`; the
+                      rows cut from `copy_to(x)`; k and v of the rank's
+                      rows gathered over "model" along the sequence in one
+                      all-gather a layer (the backward summed: every
+                      rank's queries read every slot); causal attention
+                      over the prefix [0, S·(r+1)/m), non-causal over all
+                      of it; the output rows through wo, then gathered
+                      over "model" (the backward the rank's block), so the
+                      residual stays whole. Where m does not divide S or
+                      S/m breaks the attention's block rule the layer
+                      keeps the head split (`seq_rows`). The MLP, MoE,
+                      recurrent layers, vocab and decode are unchanged.
 
     A replicated leaf used as a slice (bq to bv, a_log to d_skip, a split
     norm's scale) passes `copy_to` first, so its slices' gradients add
@@ -566,6 +591,8 @@ class SplitPlan:
         self._gathered = {}          # id(leaf) → the leaf gathered over "data" (`gather_layer`)
         self.model, self.data = layout.axis("model"), layout.axis("data")
         self.data_summed = "data" in layout.batch_axes
+        # read once, here: every rank of a group builds its plan under the same setting
+        self.seq = os.environ.get("REPRO_ATTN_SHARD") == "seq"
         m, r = self.model.size, self.model.rank
         specs = layout.specs
 
@@ -653,11 +680,14 @@ class SplitPlan:
         bound._gathered = {id(p): t for p, t in zip(leaves, whole)}
         return bound
 
-    def _take(self, p, dim=None, lo=0, hi=0, own=False):
+    def _take(self, p, dim=None, lo=0, hi=0, own=False, summed=False):
         """`p`'s block with its "data" split gathered (by `gather_layer`,
         else here). With `dim`: the slice [lo, hi) along `dim` of the leaf
         whole over "model" (`own`: the rank's own block is that slice);
-        without: the whole leaf (a replicated group)."""
+        without: the whole leaf (a replicated group), its gradient the
+        rank's own (every rank computes the same) or, `summed`, the sum of
+        the ranks' (each ran other rows: gathered with a summed backward,
+        or a leaf "model" does not split through `copy_to`)."""
         spec = self.layout.specs[self.names[id(p)]]
         t = self._gathered.get(id(p), p)
         mdim = None
@@ -667,8 +697,9 @@ class SplitPlan:
             if "model" in _axes(e) and self.model.size > 1:
                 mdim = i
         if dim is None:
-            # every rank computes the whole group: its gradients are equal
-            return t if mdim is None else gather_over(t, self.model, mdim, summed=False)
+            if mdim is None:
+                return copy_to(t, self.model) if summed else t
+            return gather_over(t, self.model, mdim, summed=summed)
         if own:
             return t
         t = copy_to(t, self.model) if mdim is None else gather_over(t, self.model, mdim)
@@ -704,18 +735,74 @@ class SplitPlan:
             w = {n: self._take(getattr(attn, n), *cols[n]) for n in names}
         return types.SimpleNamespace(cfg=cfg, split=self.heads,
                                      kv_blocks=all_kv and self.heads and self.own_kv,
-                                     q_norm=self._head_norm(getattr(attn, "q_norm", None)),
-                                     k_norm=self._head_norm(getattr(attn, "k_norm", None)), **w)
+                                     q_norm=self._head_norm(getattr(attn, "q_norm", None),
+                                                            self.heads),
+                                     k_norm=self._head_norm(getattr(attn, "k_norm", None),
+                                                            self.heads), **w)
 
-    def _head_norm(self, norm):
-        """A qk-norm for the rank's heads: where the heads split, one that
-        applies the scale through `copy_to`, so the backward sums the
-        ranks' parts of its gradient (each rank's heads give one part)
-        into the whole scale; else the module itself."""
-        if norm is None or not self.heads:
+    def _head_norm(self, norm, parts):
+        """A qk-norm for the rank's heads or rows: where each rank's use
+        gives a part of its gradient (`parts`: its own heads, or its own
+        rows of the sequence), one that applies the scale through
+        `copy_to`, so the backward sums the ranks' parts into the whole
+        scale; else the module itself."""
+        if norm is None or not parts:
             return norm
         scale = copy_to(norm.scale, self.model)
         return lambda x, eps=1e-5: rmsnorm(scale, x, eps)
+
+    # -- the sequence split (REPRO_ATTN_SHARD=seq) --------------------------------
+    def seq_rows(self, s: int, impl: str):
+        """The rank's rows [lo, hi) of a sequence of `s` under the sequence
+        split, or None where the attention keeps the head split: the mode
+        off, "model" of one rank, m not dividing `s` (the specs' rule: an
+        axis that does not divide its dim degrades to replication), or s/m
+        breaking the block rule of `impl` (the kernel's: SQ = s/m and every
+        rank's causal prefix a multiple of min(128, itself); chunked's: s/m
+        a multiple of min(512, s/m), its query chunk). It reads `s`, `impl`
+        and the mesh alone, so every rank of "model" decides alike."""
+        m = self.model.size
+        if not self.seq or m == 1 or s % m:
+            return None
+        n = s // m
+        if impl == "kernel" and any(p % min(128, p) for p in range(n, s + 1, n)):
+            return None
+        if impl == "chunked" and n % min(512, n):
+            return None
+        r = self.model.rank
+        return n * r, n * (r + 1)
+
+    def seq_weights(self, attn):
+        """The weights of an `Attention` block whole, for the rank's rows
+        of the sequence: every rank uses every leaf whole and each rank's
+        gradient comes from its own rows, so the backward sums them over
+        "model": wq, wk, wv, wo (split over "model") gathered with a summed
+        backward, a reduce-scatter into the rank's block; bq, bk, bv and
+        the qk-norm scales (replicated) through `copy_to`."""
+        cfg = attn.cfg
+        names = ["wq", "wk", "wv", "wo"] + (["bq", "bk", "bv"] if cfg.qkv_bias else [])
+        return types.SimpleNamespace(
+            cfg=cfg, q_norm=self._head_norm(getattr(attn, "q_norm", None), True),
+            k_norm=self._head_norm(getattr(attn, "k_norm", None), True),
+            **{n: self._take(getattr(attn, n), summed=True) for n in names})
+
+    def seq_cut(self, x, lo, hi):
+        """Rows [lo, hi) of x [B, S, ...], whole on every rank of "model",
+        cut after `copy_to`: each rank's rows give a part of x's gradient,
+        all-reduced over "model" into the whole."""
+        return copy_to(x, self.model)[:, lo:hi]
+
+    def seq_gather(self, k, v):
+        """k and v [B, S/m, Hkv, D] of every rank's rows, joined along the
+        sequence in one all-gather; the backward sums the ranks' gradients
+        into the rank's block (every rank's queries read every slot)."""
+        return gather_many([k, v], self.model, [1, 1])
+
+    def seq_join(self, o):
+        """The output [B, S/m, d] of every rank's rows, whole on every rank
+        of "model"; the backward keeps the rank's block of the gradient
+        (what follows runs alike on every rank)."""
+        return gather_over(o, self.model, 1, summed=False)
 
     def _columns(self, mlp, split, cols):
         """(w_gate, w_up, w_down) of a SwiGLU `mlp`: the rank's own block

@@ -18,7 +18,10 @@ a rank's share of one. Its decode (`split_attention_decode`) holds the
 rank's block of the KV cache's sequence and combines the ranks' blocks in
 one softmax across "model"; the enc-dec family's cross-attention decode
 (`split_cross_decode`) does the same over the rank's block of the encoder
-output's sequence.
+output's sequence. Under the plan's sequence split (the reference's
+`REPRO_ATTN_SHARD=seq`) the train step's and the prefill's attention runs
+the rank's rows of the sequence with every head instead
+(`seq_attention`).
 """
 from __future__ import annotations
 
@@ -56,9 +59,12 @@ class Attention(nn.Module):
 
     def forward(self, x, positions, *, causal=True, impl="ref", kv=None, plan=None):
         """With `plan`: the rank's heads, through the plan's weights, the
-        output summed over "model" (`plan.leave`)."""
+        output summed over "model" (`plan.leave`); under the plan's
+        sequence split the rank's rows of the sequence (`seq_attention`)."""
         if plan is None:
             return attention_block(self, x, positions, causal=causal, impl=impl, kv=kv)
+        if kv is None and plan.seq_rows(x.shape[1], impl) is not None:
+            return seq_attention(self, x, positions, causal=causal, impl=impl, plan=plan)
         w = plan.attention_weights(self)
         o = attention_block(w, plan.enter(x, w.split), positions, causal=causal, impl=impl,
                             kv=kv)
@@ -129,17 +135,39 @@ def _repeat_kv(k, groups):
     return k.repeat_interleave(groups, dim=1)
 
 
+def project_kv(p: Attention, src):
+    """Keys and values [B, S, Hkv, D] projected from `src` [B, S, d] with
+    the KV heads `p` holds (bias added, no RoPE): cross-attention's, over
+    the encoder output."""
+    cfg = p.cfg
+    b, s, _ = src.shape
+    hkv = p.wk.shape[-1] // cfg.hd
+    k = (src @ p.wk).reshape(b, s, hkv, cfg.hd)
+    v = (src @ p.wv).reshape(b, s, hkv, cfg.hd)
+    if cfg.qkv_bias:
+        shape = (hkv, cfg.hd)
+        k, v = k + p.bk.reshape(shape), v + p.bv.reshape(shape)
+    return k, v
+
+
 def attention_block(p: Attention, x, positions, *, causal=True, impl="ref", kv=None):
     """Self-attention. kv: optional (k_ext, v_ext) [B, S, Hkv, D] to attend
     over instead (cross-attention); x provides queries only in that case.
     The head counts are those of `p`'s weights."""
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    cfg = p.cfg
-    b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, positions)
     if kv is not None:
         k, v = kv
+    return _attend(p, q, k, v, causal=causal, impl=impl)
+
+
+def _attend(p: Attention, q, k, v, *, causal, impl, k_chunk=1024):
+    """Queries q [B, SQ, H, D] over k, v [B, SKV, Hkv, D] (causal: query i
+    sees slot j <= i + SKV - SQ), through `p.wo`: [B, SQ, d]. `k_chunk` is
+    `chunked_attention`'s."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    cfg = p.cfg
+    b, s = q.shape[:2]
     q = q.transpose(1, 2)                       # [B,H,S,D]
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
@@ -151,7 +179,7 @@ def attention_block(p: Attention, x, positions, *, causal=True, impl="ref", kv=N
         k = _repeat_kv(k, groups)
         v = _repeat_kv(v, groups)
         if impl == "chunked":
-            o = chunked_attention(q, k, v, causal=causal)
+            o = chunked_attention(q, k, v, causal=causal, k_chunk=k_chunk)
         else:
             bh = b * h
             o = attention_ref(q.reshape(bh, s, cfg.hd), k.reshape(bh, -1, cfg.hd),
@@ -159,6 +187,44 @@ def attention_block(p: Attention, x, positions, *, causal=True, impl="ref", kv=N
             o = o.reshape(b, h, s, cfg.hd)
     o = o.transpose(1, 2).reshape(b, s, h * cfg.hd)
     return o @ p.wo
+
+
+def prefix_chunk(n: int) -> int:
+    """The largest divisor of `n` up to 1,024: a `chunked_attention` kv
+    chunk that divides every multiple of `n` (each rank's causal prefix
+    under the sequence split, which `min(1024, SKV)` often does not:
+    1,280 slots at S 4,096 over 16 ranks)."""
+    return next(c for c in range(min(n, 1024), 0, -1) if n % c == 0)
+
+
+def seq_attention(p: Attention, x, positions, *, causal, impl, plan, enc=None):
+    """Attention of a rank under the split plan's sequence split (the
+    reference's `REPRO_ATTN_SHARD=seq`: q, k and v split over "model"
+    along the sequence, every head on every rank).
+
+    x: [B, S, d], whole on every rank of "model"; positions: [B, S] (None:
+    no RoPE); enc (cross-attention): the encoder output [B, S_enc, d],
+    whole, from which the keys and values are projected. The rank takes
+    its rows [lo, hi) = `plan.seq_rows(S)` of x through `plan.seq_cut`
+    (and of `enc`), projects them with the whole weights
+    (`plan.seq_weights`), gathers k and v of every rank's rows over
+    "model" (`plan.seq_gather`, one all-gather a layer) and attends: causal
+    over the prefix [0, hi), whose bottom-right diagonal is exactly its
+    rows' mask (`chunked_attention` then in chunks of `prefix_chunk(hi -
+    lo)`, which divides every prefix), non-causal over every slot. Its
+    output rows pass wo and are gathered over "model" (`plan.seq_join`):
+    [B, S, d], whole on every rank."""
+    w = plan.seq_weights(p)
+    lo, hi = plan.seq_rows(x.shape[1], impl)
+    rows = None if positions is None else positions[:, lo:hi]
+    q, k, v = _project_qkv(w, plan.seq_cut(x, lo, hi), rows)
+    if enc is not None:
+        k, v = project_kv(w, plan.seq_cut(enc, *plan.seq_rows(enc.shape[1], impl)))
+    k, v = plan.seq_gather(k, v)
+    chunk = 1024
+    if causal:
+        k, v, chunk = k[:, :hi], v[:, :hi], prefix_chunk(hi - lo)
+    return plan.seq_join(_attend(w, q, k, v, causal=causal, impl=impl, k_chunk=chunk))
 
 
 def attention_decode(p: Attention, x, cache: dict, pos: int):

@@ -19,7 +19,11 @@ rows, its block of each self-attention cache's slots and its block of
 the encoder output's slots (`SplitPlan.enc_slots`, the reference's
 `cache_specs`), which `set_encoder_output` fills, and `decode_step`
 combines the ranks' blocks in a softmax across "model"
-(`models.attention.split_attention_decode`, `split_cross_decode`).
+(`models.attention.split_attention_decode`, `split_cross_decode`). Under
+the plan's sequence split (`REPRO_ATTN_SHARD=seq`) the encoder's and the
+decoder's self-attention and the cross-attention of the train step and
+the prefill run the rank's rows of their sequences with every head
+(`models.attention.seq_attention`).
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ import torch
 from torch import nn
 
 from .attention import (Attention, attention_block, attention_decode, init_kv_cache,
-                        split_attention_decode, split_cross_decode)
+                        project_kv, seq_attention, split_attention_decode,
+                        split_cross_decode)
 from .layers import MLP, RMSNorm, embed_init, remat_call
 
 
@@ -62,19 +67,18 @@ class DecLayer(nn.Module):
         rank's query heads over the KV heads they read, projected from
         `enc_out` through `plan.enter` (each rank's heads give a part of
         the encoder output's gradient), its rows of wo, then
-        `plan.leave`."""
+        `plan.leave`; under the plan's sequence split, where it applies to
+        both sequences, the rank's rows of x's over the keys and values of
+        every rank's rows of `enc_out` (`seq_attention`)."""
         p, q = self.cross_attn, self.ln_x(x, cfg.norm_eps)
+        if plan is not None and plan.seq_rows(q.shape[1], impl) is not None \
+                and plan.seq_rows(enc_out.shape[1], impl) is not None:
+            return x + seq_attention(p, q, None, causal=False, impl=impl, plan=plan,
+                                     enc=enc_out)
         if plan is not None:
             p = plan.attention_weights(p)
             enc_out, q = plan.enter(enc_out, p.split), plan.enter(q, p.split)
-        b, s, _ = enc_out.shape
-        hkv = p.wk.shape[-1] // cfg.hd                  # the KV heads `p` holds
-        k = (enc_out @ p.wk).reshape(b, s, hkv, cfg.hd)
-        v = (enc_out @ p.wv).reshape(b, s, hkv, cfg.hd)
-        if cfg.qkv_bias:
-            shape = (hkv, cfg.hd)
-            k, v = k + p.bk.reshape(shape), v + p.bv.reshape(shape)
-        h = attention_block(p, q, None, causal=False, impl=impl, kv=(k, v))
+        h = attention_block(p, q, None, causal=False, impl=impl, kv=project_kv(p, enc_out))
         return x + (h if plan is None else plan.leave(h, p.split))
 
     def decode(self, x, lc, cache, pos, impl, cfg, plan=None):

@@ -31,7 +31,10 @@ body, so the recompute gathers again) and returns the logits of the
 rank's vocab block, or with `last_only` the whole last-token logits
 gathered over "model". `init_cache` then allocates the rank's block of
 the KV cache and of the recurrent states, and `decode_step` runs the plan
-too.
+too. Under the plan's sequence split (`REPRO_ATTN_SHARD=seq`) each
+attention layer of the forward (the shared attention block's too) runs
+the rank's rows of the sequence with every head instead of its heads
+(`models.attention.seq_attention`); decode keeps the heads.
 """
 from __future__ import annotations
 

@@ -901,6 +901,123 @@ def run_split_encdec(payload, mesh):
     return out
 
 
+def _mutant_seq(kind):
+    """(name, method) of a `SplitPlan` with a fault of `kind` in its
+    sequence split, to show that the tests see it: "unsummed" gathers the
+    attention weights over "model" with an unsummed backward (each rank's
+    block of their gradient from its own rows only); "uncopied" cuts the
+    rank's rows of x without `copy_to` (x's gradient from the rank's rows
+    only)."""
+    def seq_weights(self, attn):
+        cfg = attn.cfg
+        names = ["wq", "wk", "wv", "wo"] + (["bq", "bk", "bv"] if cfg.qkv_bias else [])
+        return types.SimpleNamespace(
+            cfg=cfg, q_norm=self._head_norm(getattr(attn, "q_norm", None), True),
+            k_norm=self._head_norm(getattr(attn, "k_norm", None), True),
+            **{n: self._take(getattr(attn, n), summed=False) for n in names})
+
+    def seq_cut(self, x, lo, hi):
+        return x[:, lo:hi]
+    return {"unsummed": ("seq_weights", seq_weights), "uncopied": ("seq_cut", seq_cut)}[kind]
+
+
+def run_split_seq(payload, mesh):
+    """payload: [dict(id, arch, overrides, layers, arrays, spec, steps,
+    microbatches, seq, global_batch, attn_shard, mutant)]. The arch's
+    smoke config at `layers` layers (enc-dec: as many encoder and decoder
+    layers) in f32 with the overrides, holding the reference's weights
+    (`from_reference`), placed on the mesh by the specs (the split plan)
+    with `Layout.gather_params` made to raise, the plan built with
+    REPRO_ATTN_SHARD set to `attn_shard` (None: unset; the setting is
+    restored after the case); mutant (None, or a kind of `_mutant_seq`)
+    swaps a method of the plan for a faulty one. First the split
+    prefill's last-token logits of step 0's rows (`impl="chunked"`),
+    counting the attention calls that ran the sequence split
+    (`SplitPlan.seq_join`) and the collectives over "model"; then `steps`
+    train steps of `launch.train`'s data: the losses, grad norms and held
+    bytes, the plan's mode, the rank's blocks of the leaves "model" does
+    not split (with its "data" coordinate) and (rank 0) every parameter
+    gathered."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import train as lt
+    from repro_torch.launch.mesh import effective_batch_axes
+    from repro_torch.models.weights import from_reference
+    from repro_torch.train import OptimizerConfig, init_state, make_train_step
+
+    def refuse(self, params):
+        raise AssertionError("a split step gathered the parameters whole")
+    out = {}
+    plain = {n: getattr(sh.SplitPlan, n) for n in ("seq_weights", "seq_cut", "seq_join")}
+    setting = os.environ.get("REPRO_ATTN_SHARD")
+    for c in payload:
+        layers = dict(n_enc_layers=c["layers"], n_dec_layers=c["layers"]) \
+            if ARCHS[c["arch"]].family == "encdec" else dict(n_layers=c["layers"])
+        cfg = dataclasses.replace(ARCHS[c["arch"]].smoke(), dtype="float32", **layers,
+                                  **c["overrides"])
+        m = lt.make_mesh(c["spec"], device="cpu")
+        model = from_reference(c["arrays"], cfg, device="cpu")
+        state = init_state(model)
+        gb = c["global_batch"]
+        lay = sh.named(m, sh.param_specs(state.params, dict(m.shape)),
+                       effective_batch_axes(m, gb))
+        lay.gather_params = types.MethodType(refuse, lay)
+        joins = []
+
+        def counted_join(self, o):
+            joins.append(tuple(o.shape))
+            return plain["seq_join"](self, o)
+        sh.SplitPlan.seq_join = counted_join
+        if c["mutant"]:
+            name, method = _mutant_seq(c["mutant"])
+            setattr(sh.SplitPlan, name, method)
+        if c["attn_shard"] is None:
+            os.environ.pop("REPRO_ATTN_SHARD", None)
+        else:
+            os.environ["REPRO_ATTN_SHARD"] = c["attn_shard"]
+        try:
+            state = sh.place(state, lay)
+            plan = model.net.plan
+            dc = lt.data_config(cfg, c["seq"], gb)
+            rows = lay.rows(gb)
+            counting, counts, restore = _model_collectives(plan.model.group)
+            counting[0] = True
+            try:
+                with torch.inference_mode():
+                    prefill, _ = model(lt.batch_for(cfg, dc, 0, "cpu", rows), impl="chunked",
+                                       last_only=True)
+            finally:
+                counting[0] = False
+                restore()
+            res = dict(ran=lay.plan_for(cfg), rows=[rows.start, rows.stop], seq=plan.seq,
+                       prefill=host(prefill), prefill_joins=list(joins),
+                       model_collectives=list(counts), model_rank=plan.model.rank)
+            step = make_train_step(model, OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                                          total_steps=10),
+                                   microbatches=c["microbatches"])
+            hist = []
+            for i in range(c["steps"]):
+                state, met = step(state, lt.batch_for(cfg, dc, i, "cpu", rows))
+                hist.append(dict(loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+                                 lr=float(met["lr"]), held_bytes=sh.held_bytes(state)))
+        finally:
+            for n, f in plain.items():
+                setattr(sh.SplitPlan, n, f)
+            if setting is None:
+                os.environ.pop("REPRO_ATTN_SHARD", None)
+            else:
+                os.environ["REPRO_ATTN_SHARD"] = setting
+        unsplit = {n: host(p.detach()) for n, p in state.params.items()
+                   if not any("model" in sh._axes(e) for _, e in lay._split(n))}
+        whole = {n: host(lay.gather(n, p.detach())) for n, p in state.params.items()}
+        out[c["id"]] = dict(res, history=hist, data_rank=lay.axis("data").rank,
+                            not_model_split=unsplit,
+                            step_joins=len(joins) - len(res["prefill_joins"]),
+                            params=whole if mesh.rank == 0 and c["steps"] else None)
+    return out
+
+
 def run_gather_dtypes(payload, mesh):
     """payload: [(case_id, seed)]. One "data" axis of the world: a bf16
     leaf [8, 12] split by rows and an f32 leaf [12, 8] split by columns,
@@ -934,12 +1051,12 @@ def run_cases(payload: dict, mesh) -> dict:
     """Each section of the payload ("programs", "exchanges", "gathers",
     "grid", "pods", "tune", "train", "reduce", "moments", "split_functions",
     "split_steps", "split_decode", "split_moe", "split_ssm", "split_encdec",
-    "gather_dtypes"), in that order on every rank."""
+    "split_seq", "gather_dtypes"), in that order on every rank."""
     jobs = {"programs": run_programs, "exchanges": run_exchanges, "gathers": run_gathers,
             "grid": run_grid, "pods": run_pods, "tune": run_tune, "train": run_train,
             "reduce": run_reduce, "moments": run_moments,
             "split_functions": run_split_functions, "split_steps": run_split_steps,
             "split_decode": run_split_decode, "split_moe": run_split_moe,
             "split_ssm": run_split_ssm, "split_encdec": run_split_encdec,
-            "gather_dtypes": run_gather_dtypes}
+            "split_seq": run_split_seq, "gather_dtypes": run_gather_dtypes}
     return {k: jobs[k](payload[k], mesh) for k in jobs if k in payload}
