@@ -438,6 +438,31 @@ Phase 15 runs last, after phase 10:
                0.25, and their bf16 plain logits within 0.25 of their f32
                plain ones; for deepseek and zamba2 they are printed.
 
+Phase 27 runs after phase 20, in the single-card run only (never under
+--dist-only):
+
+ 27. examples — each example of the port (examples/torch_*.py) at its
+               defaults on the card, in a child process (sys.executable,
+               PYTHONPATH=src, the torchrun variables removed, so
+               quickstart makes its own one-rank NCCL group): quickstart;
+               graph_analytics --backend cuda over its six graphs;
+               query_server at its default size (4,000 and 2,000
+               vertices, 128 concurrent sssp queries, a lone one, a bc);
+               serve_lm; train_lm with its 200 steps. The child runs a
+               short script that imports the example, calls its main and
+               prints, after the example's own output, one JSON line of
+               what main returned and `ell_sweep.launches`. The phase
+               fails unless every child exits 0 with every verified flag
+               true (graph_analytics checks sssp against the NumPy oracle
+               up to 4,096 vertices, as the reference does; above, its
+               flag is null) and, on the card, each graph example
+               (quickstart, graph_analytics, query_server) launched the
+               sweep. It prints each child's seconds (on the card one
+               child at a time; about 2 minutes). The rehearsal runs the
+               same children at the test sizes (graph_analytics on GR and
+               RM, query_server --smoke --backend local, train_lm 6 steps
+               of 4 x 16), all at once, one CPU thread each.
+
 With --trace, phase 12 also traces one lone sssp query and one coalesced
 sweep (B = 32), and phase 13 one sssp refresh, in phase 7's format, and
 phase 15 one prefill of each family (xlstm's at 512 tokens), and phase 18
@@ -454,8 +479,8 @@ reported by the sweep that the main path runs, with the launches of
 phases 5, 11, 12 and 13, flash_attention.bf16 with the launches of
 phases 9 and 15, and tc_matmul.f32); the last line is {"ok": true,
 "device": {...}}. Without a CUDA device the run fails; a `--device cpu`
-rehearsal runs phases 3, 5, 6, 8 to 18 and 20 with the plain versions at
-smoke sizes (the LMs' smoke configs, a 256-token prefill (128 in phase
+rehearsal runs phases 3, 5, 6, 8 to 18, 20 and 27 with the plain versions
+at smoke sizes (the LMs' smoke configs, a 256-token prefill (128 in phase
 15), RMAT --scale for the graph phases, RMAT 8 for tc, phase 18 at seq
 64 without its card-against-CPU and flash checks, phase 20 on rmat(8)),
 prints no result line
@@ -4997,6 +5022,118 @@ def offline_phase(seed, dev, on_card, trained):
     return dict(io=io_info, analyze=cli, census=census_check(seed, dev, on_card, trained))
 
 
+# phase 27: each example of the port at its defaults on the card, at the
+# test sizes in the rehearsal (argv beyond --device)
+EXAMPLE_RUNS = (
+    ("quickstart", [], []),
+    ("graph_analytics", ["--backend", "cuda"], ["--graphs", "GR,RM"]),
+    ("query_server", [], ["--smoke", "--backend", "local"]),
+    ("serve_lm", [], []),
+    ("train_lm", [], ["--steps", "6", "--seq", "16", "--batch", "4"]),
+)
+GRAPH_EXAMPLES = ("quickstart", "graph_analytics", "query_server")
+# what torchrun sets: an example makes its own one-rank group, or none
+TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+EXAMPLE_TIMEOUT_S = 400
+EXAMPLE_CHILD = """\
+import importlib.util, json, sys
+import numpy as np
+spec = importlib.util.spec_from_file_location("example", sys.argv[1])
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+out = mod.main(sys.argv[2:])
+from repro_torch.kernels.ell_spmv.kernel import ell_sweep
+
+def small(x):
+    if isinstance(x, dict):
+        return {str(k): small(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [small(v) for v in x]
+    if isinstance(x, np.ndarray):
+        return x.tolist() if x.size <= 128 else f"<{x.dtype} array {list(x.shape)}>"
+    return x.item() if isinstance(x, np.generic) else x
+
+print(json.dumps({"returned": small(out), "ell_sweep_launches": ell_sweep.launches}))
+"""
+
+
+def example_flags(name, ret):
+    """The verified flags of what an example's `main` returned, each True
+    or, for graph_analytics' sssp above 4,096 vertices (no oracle run),
+    None."""
+    if name == "quickstart":
+        return {k: ret[k] for k in ("cuda_identical", "distributed_identical")}
+    if name == "graph_analytics":
+        return {f"{g}.sssp": r["sssp"]["verified"] for g, r in ret.items()}
+    if name == "query_server":
+        return {k: ret[k] for k in ("sssp_verified", "lone_verified", "bc_verified")}
+    if name == "serve_lm":
+        return {"tokens_4x20": np.array(ret["tokens"]).shape == (4, 20),
+                "loss_finite": math.isfinite(ret["loss"])}
+    return {"restored": bool(ret["restored_step"]),
+            "loss_finite": math.isfinite(ret["final_loss"])}
+
+
+def run_example(name, argv, env):
+    """One example in a child process: (its result, its seconds)."""
+    path = os.path.join(HERE, "examples", f"torch_{name}.py")
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", EXAMPLE_CHILD, path, *argv],
+                       capture_output=True, text=True, env=env, cwd=HERE,
+                       timeout=EXAMPLE_TIMEOUT_S)
+    return r, time.perf_counter() - t
+
+
+def examples_phase(on_card):
+    """Phase 27: each example of the port (examples/torch_*.py) in a child
+    process with the torchrun variables removed, its output shown as it
+    printed it; the child's last line is what `main` returned and the
+    `ell_sweep` launches of its run. Every child must exit 0 with every
+    verified flag true, and on the card each graph example must launch
+    the sweep. On the card the children run one at a time, each timed
+    alone; the rehearsal runs them all at once, one CPU thread each, so
+    that it stays short on a busy host."""
+    import concurrent.futures
+    import gc
+    import torch
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    env = {k: v for k, v in os.environ.items() if k not in TORCHRUN_VARS}
+    env["PYTHONPATH"] = os.path.join(HERE, "src")
+    if not on_card:
+        env["OMP_NUM_THREADS"] = "1"
+    runs = [(name, card_argv if on_card else cpu_argv + ["--device", "cpu"])
+            for name, card_argv, cpu_argv in EXAMPLE_RUNS]
+    pool = concurrent.futures.ThreadPoolExecutor(1 if on_card else len(runs))
+    rows = []
+    try:
+        futures = [pool.submit(run_example, name, argv, env) for name, argv in runs]
+        for (name, argv), future in zip(runs, futures):
+            r, seconds = future.result()
+            lines = r.stdout.rstrip().splitlines()
+            for line in lines[:-1]:
+                print(f"  | {line}")
+            if r.returncode != 0 or not lines:
+                fail(f"example {name} {' '.join(argv)}: exit {r.returncode}, "
+                     f"stderr {r.stderr[-2000:]!r}")
+            child = json.loads(lines[-1])
+            flags = example_flags(name, child["returned"])
+            row = dict(example=name, argv=argv, seconds=seconds, flags=flags,
+                       ell_sweep_launches=child["ell_sweep_launches"])
+            if "seconds" in child["returned"]:
+                row["example_seconds"] = child["returned"]["seconds"]
+            print("  " + json.dumps(row), flush=True)
+            if any(v is False for v in flags.values()) or not any(flags.values()):
+                fail(f"example {name}: verified flags {flags}")
+            if on_card and name in GRAPH_EXAMPLES and child["ell_sweep_launches"] == 0:
+                fail(f"example {name} launched no ell_sweep kernel")
+            rows.append(row)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    return rows
+
+
 DRY_RUN_CELL = """\
 import json, sys
 from repro_torch.configs import ARCHS
@@ -5368,6 +5505,14 @@ def main(argv=None):
     phase("offline", t0, f"edge list == source graph; analyze CLI alone; census on the card "
           f"== dry run on meta ({c['card_flops']:.4e} FLOPs), step "
           f"{c['step_over_bound']:.2f}x its bound, 6NT / census {c['useful_fraction']:.4f}")
+
+    # 27. examples
+    t0 = time.perf_counter()
+    examples = examples_phase(on_card)
+    phase("examples", t0, "; ".join(
+        f"{e['example']} {e['seconds']:.1f} s"
+        + (f" (ell_sweep {e['ell_sweep_launches']})" if e["example"] in GRAPH_EXAMPLES else "")
+        for e in examples) + ": every verified flag true")
 
     if not on_card:
         print("rehearsal finished: plain versions on the CPU — not a smoke run")

@@ -1,7 +1,7 @@
 """The port stands alone: nothing under src/repro_torch/, not
-chip_smoke.py, and not the module the distributed tests run in their ranks
-(tests/torch_dist_worker.py), imports jax or anything of the JAX package
-`repro`."""
+chip_smoke.py, not the port's examples (examples/torch_*.py), and not the
+module the distributed tests run in their ranks (tests/torch_dist_worker.py),
+imports jax or anything of the JAX package `repro`."""
 import ast
 import pathlib
 
@@ -9,7 +9,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-FILES = PORT + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worker.py"]
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+FILES = PORT + EXAMPLES + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worker.py"]
 
 
 def imported_modules(path):
@@ -32,7 +33,11 @@ def test_the_walk_sees_the_package():
     assert {"csr.py", "ops.py", "kernel.py", "api.py", "transformer.py", "engine.py",
             "chip_smoke.py", "dist.py", "runtime_dist.py", "distributed.py",
             "torch_dist_worker.py", "io.py", "cli.py", "__main__.py", "analyze.py",
-            "roofline.py", "hlo_cost.py", "dryrun.py", "report.py"} <= names
+            "roofline.py", "hlo_cost.py", "dryrun.py", "report.py",
+            "algorithms_ref.py"} <= names
+    assert {p.name for p in EXAMPLES} == {
+        f"torch_{n}.py" for n in ("quickstart", "graph_analytics", "query_server",
+                                  "serve_lm", "train_lm")}
     assert all(p.exists() for p in FILES)
 
 

@@ -78,6 +78,13 @@ def test_cpu_rehearsal_checks_every_run_and_is_not_a_smoke_run(no_card):
     assert rows[2]["max_rel_err_vs_float64"] <= 1e-4
     assert rows[4]["tune"] == "rmat(8)" and rows[4]["best_ms"] <= rows[4]["default_ms"]
     assert "[grid]" in r.stdout
+    examples = [json.loads(line) for line in r.stdout.splitlines()
+                if line.startswith('  {"example"')]
+    assert [e["example"] for e in examples] == [
+        "quickstart", "graph_analytics", "query_server", "serve_lm", "train_lm"]
+    assert all(e["flags"] and all(e["flags"].values()) for e in examples)
+    assert all(e["argv"][-2:] == ["--device", "cpu"] for e in examples)
+    assert "[examples]" in r.stdout
 
 
 def load_smoke():

@@ -114,8 +114,11 @@ def worlds(weights, tmp_path_factory):
                       enc_len=enc_len, max_len=MAX_LEN, mutant=mutant)
                  for cid, spec, enc_len, mutant, steps in CASES + [ODD, MUTANT]
                  if world_of(spec) == world]
-        return spawn_world(world, {"split_encdec": cases}, tmp_path_factory.mktemp("encdec"),
+        return spawn_world(world, {"split_encdec": cases}, dirs[world],
                            timeout=300)
+    # made here, not in the threads: the first mktemp of a worker creates its
+    # base directory, and two threads doing so at once collide
+    dirs = {world: tmp_path_factory.mktemp("encdec") for world in (2, 4)}
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         return dict(zip((2, 4), pool.map(run, (2, 4))))
 

@@ -136,8 +136,11 @@ def worlds(weights, tmp_path_factory):
                       attn_shard=shard, mutant=mutant)
                  for cid, name, spec, seq, shard, mutant, steps in CASES + GUARD + MUTANTS
                  if world_of(spec) == world]
-        return spawn_world(world, {"split_seq": cases}, tmp_path_factory.mktemp("seq"),
+        return spawn_world(world, {"split_seq": cases}, dirs[world],
                            timeout=300)
+    # made here, not in the threads: the first mktemp of a worker creates its
+    # base directory, and two threads doing so at once collide
+    dirs = {world: tmp_path_factory.mktemp("seq") for world in (2, 4)}
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         return dict(zip((2, 4), pool.map(run, (2, 4))))
 

@@ -111,8 +111,11 @@ def worlds(weights, tmp_path_factory):
                       global_batch=BATCH, tokens=None if mutant else decode_tokens(),
                       max_len=MAX_LEN, mutant=mutant)
                  for cid, arch, spec, mutant in CASES + MUTANTS if world_of(spec) == world]
-        return spawn_world(world, {"split_ssm": cases}, tmp_path_factory.mktemp("ssm"),
+        return spawn_world(world, {"split_ssm": cases}, dirs[world],
                            timeout=300)
+    # made here, not in the threads: the first mktemp of a worker creates its
+    # base directory, and two threads doing so at once collide
+    dirs = {world: tmp_path_factory.mktemp("ssm") for world in (2, 4)}
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         return dict(zip((2, 4), pool.map(run, (2, 4))))
 
