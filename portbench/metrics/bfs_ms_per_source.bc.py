@@ -1,0 +1,13 @@
+"""Device milliseconds per source of the traced bc calls spent in the batched
+BFS (`rt.bfs_levels_batch`, its `bfs` span): the union of the run times of
+the kernels launched inside those spans, divided by the sources the traced
+calls solved."""
+from portbench import spans
+
+
+def read(run):
+    t = run.traced
+    if run.workload.get("program") != "bc" or not t or not t.get("solves"):
+        return None
+    ms = spans.launched_ms(run, "bfs")
+    return None if ms is None else ms / t["solves"]

@@ -31,6 +31,7 @@ import torch
 
 from ..graph.csr import resolve_schedule
 from ..schedule import Schedule
+from ..trace import span
 from . import runtime as rt
 from .analysis import (DiagnosticError, check_schedule, diag, entry_error,
                        program_analysis, split)
@@ -140,11 +141,12 @@ class BoundProgram:
 
     def __call__(self, **params):
         prog = self.program
-        if prog.backend != "distributed":
-            return prog.fn(self.graph, **params)
-        from . import dist
-        return dist.run_prepared(prog, self._gd, self.mesh,
-                                 num_nodes=self.graph.num_nodes, **params)
+        with span("call." + prog.name):
+            if prog.backend != "distributed":
+                return prog.fn(self.graph, **params)
+            from . import dist
+            return dist.run_prepared(prog, self._gd, self.mesh,
+                                     num_nodes=self.graph.num_nodes, **params)
 
     def refresh(self, prev: dict, delta, /, **params):
         # prev/delta are positional-only: program params are free to reuse
@@ -181,17 +183,18 @@ class BoundProgram:
             raise ValueError(
                 "refresh must run on the post-update graph: bind the "
                 "program to delta.graph and pass the matching delta")
-        plan = delta.plan()
-        if plan.affected_frac > prog.schedule.refresh_threshold_frac:
-            return self(**params)
-        n = self.graph.num_nodes
-        warm = {k: v for k, v in prev.items()
-                if getattr(v, "shape", None) == (n,)}
-        dev = self.graph.device
-        return prog.refresh_fn(self.graph, _warm=warm,
-                               _reset=torch.from_numpy(plan.reset).to(dev),
-                               _seed=torch.from_numpy(plan.seed).to(dev),
-                               **params)
+        with span("call." + prog.name, refresh=True):
+            plan = delta.plan()
+            if plan.affected_frac > prog.schedule.refresh_threshold_frac:
+                return self(**params)
+            n = self.graph.num_nodes
+            warm = {k: v for k, v in prev.items()
+                    if getattr(v, "shape", None) == (n,)}
+            dev = self.graph.device
+            return prog.refresh_fn(self.graph, _warm=warm,
+                                   _reset=torch.from_numpy(plan.reset).to(dev),
+                                   _seed=torch.from_numpy(plan.seed).to(dev),
+                                   **params)
 
     def __repr__(self):
         g = self.graph

@@ -133,6 +133,12 @@ class LocalCodegen:
         wr = written_vars(body)
         return [v for v in self.declared if v in wr]
 
+    def trip(self):
+        """Open one trip of a host loop: emits its `trip` span, and returns
+        the block that holds the trip's statements."""
+        self.em.w('with rt.span("trip"):')
+        return self.em.block()
+
     def loop_body(self, stmts, ctx):
         """The statements of a Python loop's block, already opened by the
         caller (`pass` if they emit nothing)."""
@@ -797,10 +803,12 @@ class LocalCodegen:
         raise CodegenError("host-level if unsupported (use fixedPoint/do-while)")
 
     def s_IFixedPoint(self, s: I.IFixedPoint, ctx):
-        """`fixedPoint until (var : !conv)` → a host `while` that reads the
-        on-device `finished` flag once per trip (a bool tensor: in Python
-        `~False == -1`). Under delta-stepping the bucket index is a 0-d
-        device tensor, so the bucket advance adds no host read."""
+        """`fixedPoint until (var : !conv)` → a host loop whose trips each
+        end in one read of the on-device `finished` flag (a bool tensor: in
+        Python `~False == -1`). The flag starts false, so the first trip
+        always runs and needs no read before it. Under delta-stepping the
+        bucket index is a 0-d device tensor, so the bucket advance adds no
+        host read."""
         em = self.em
         if self.batch is not None:
             raise CodegenError("fixedPoint inside a batched source loop")
@@ -814,8 +822,8 @@ class LocalCodegen:
         n = em.uid("fp")
         if delta is not None:
             em.w(f"{n}_bk = torch.zeros((), dtype=torch.int32, device=_dev)")
-        em.w(f"while not bool({s.var}):")
-        with em.block():
+        em.w("while True:")
+        with em.block(), self.trip():
             if delta is None:
                 em.w(f"{conv}_nxt = torch.zeros_like({conv})")
             else:
@@ -835,6 +843,9 @@ class LocalCodegen:
                 self.write_alias = saved
             em.w(f"{conv} = {conv}_nxt")
             self.emit_finished(s.var, conv)
+            em.w(f"if rt.host_read({s.var}):")
+            with em.block():
+                em.w("break")
 
     def _emit_delta_preamble(self, n: str, vprop: str, conv: str):
         """Bucketed-frontier preamble of a delta-stepping fixedPoint body.
@@ -873,9 +884,9 @@ class LocalCodegen:
                 raise CodegenError("do-while inside a batched source loop")
             return self._batched_scalar_loop(s, ctx, do_while=True)
         em.w("while True:")
-        with em.block():
+        with em.block(), self.trip():
             self.body(s.body, ctx)
-            em.w(f"if not bool({self.ex.expr(s.cond, ctx)}):")
+            em.w(f"if not rt.host_read({self.ex.expr(s.cond, ctx)}):")
             with em.block():
                 em.w("break")
 
@@ -885,8 +896,8 @@ class LocalCodegen:
             if not self.supports_batched_scalar_loops:
                 raise CodegenError("while inside a batched source loop")
             return self._batched_scalar_loop(s, ctx, do_while=False)
-        em.w(f"while bool({self.ex.expr(s.cond, ctx)}):")
-        with em.block():
+        em.w(f"while rt.host_read({self.ex.expr(s.cond, ctx)}):")
+        with em.block(), self.trip():
             self.loop_body(s.body, ctx)
 
     def _batched_scalar_loop(self, s, ctx, do_while: bool):
@@ -913,10 +924,10 @@ class LocalCodegen:
         first = f"{n}_first"
         if do_while:
             em.w(f"{first} = True")
-            em.w(f"while {first} or bool(torch.any({cond})):")
+            em.w(f"while {first} or rt.host_read(torch.any({cond})):")
         else:
-            em.w(f"while bool(torch.any({cond})):")
-        with em.block():
+            em.w(f"while rt.host_read(torch.any({cond})):")
+        with em.block(), self.trip():
             act = f"{first} | ({cond})" if do_while else cond
             em.w(f"{n}_act = torch.broadcast_to(torch.as_tensor({act}, device=_dev), "
                  f"({b.size},))")
@@ -1018,21 +1029,25 @@ class LocalCodegen:
             em.w(f"{lvl}, {dep} = rt.bfs_levels({g}, {root}"
                  f"{self._engine_kwargs()})")
         # forward pass: level-synchronous over the BFS DAG
-        em.w(f"for _l in range({dep} - 1):")
+        em.w('with rt.span("bfs.forward"):')
         with em.block():
-            bctx = BFSCtx(it=s.it, level=lvl, cur="_l", mask=None, parent=ctx)
-            self.loop_body(s.body, bctx)
+            em.w(f"for _l in range({dep} - 1):")
+            with em.block():
+                bctx = BFSCtx(it=s.it, level=lvl, cur="_l", mask=None, parent=ctx)
+                self.loop_body(s.body, bctx)
         if s.rev_body is None:
             return
         # reverse pass: levels from deepest-1 down to 0
-        em.w(f"for _k in range({dep} - 1):")
+        em.w('with rt.span("bfs.reverse"):')
         with em.block():
-            em.w(f"_l = {dep} - 2 - _k")
-            vm = self._vmask(f"({lvl} == _l)")
-            bctx = BFSCtx(it=s.it, level=lvl, cur="_l", mask=vm, parent=ctx)
-            if s.rev_filter is not None:
-                em.w(f"{vm} = {vm} & ({self.ex.expr(s.rev_filter, bctx)})")
-            self.body(s.rev_body, bctx)
+            em.w(f"for _k in range({dep} - 1):")
+            with em.block():
+                em.w(f"_l = {dep} - 2 - _k")
+                vm = self._vmask(f"({lvl} == _l)")
+                bctx = BFSCtx(it=s.it, level=lvl, cur="_l", mask=vm, parent=ctx)
+                if s.rev_filter is not None:
+                    em.w(f"{vm} = {vm} & ({self.ex.expr(s.rev_filter, bctx)})")
+                self.body(s.rev_body, bctx)
 
     def s_IReturn(self, s: I.IReturn, ctx):
         pass  # outputs are returned as the property/scalar dict

@@ -32,6 +32,7 @@ from ..graph.csr import (CSRGraph, pad_nodes, resolve_schedule, to_ell,
                          to_sliced_ell)
 from ..kernels.ell_spmv.plan import sweep_plan
 from ..schedule import Schedule
+from ..trace import span
 
 
 class GraphContext:
@@ -56,10 +57,12 @@ class GraphContext:
         return g
 
     def view(self, key, build):
-        """Memoized derived structure: `build(graph)` runs at most once."""
+        """Memoized derived structure: `build(graph)` runs at most once,
+        inside a `view` span."""
         v = self._views.get(key)
         if v is None:
-            v = self._views[key] = build(self.graph)
+            with span("view", key=key):
+                v = self._views[key] = build(self.graph)
         return v
 
     def view_keys(self) -> list:

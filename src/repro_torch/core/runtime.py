@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..graph.csr import ENGINE, INF_I32, CSRGraph
+from ..trace import span   # generated code opens its spans as `rt.span`
 
 INF = int(INF_I32)   # a Python int, so int32 tensors stay int32 in arithmetic
 
@@ -233,6 +234,19 @@ def is_an_edge(g: CSRGraph, u, w) -> torch.Tensor:
     return _is_an_edge_rowsearch(g, u, w)
 
 
+# --- host reads ----------------------------------------------------------------
+
+def host_read(x):
+    """A device scalar read on the host, as the Python bool or number it
+    holds: the one device-to-host sync of a generated loop's condition or a
+    push/pull choice, in a `host_read` span. A Python value passes
+    through."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    with span("host_read"):
+        return x.item()
+
+
 # --- frontier engine (direction-optimizing traversal) --------------------------
 
 def frontier_size(frontier: torch.Tensor) -> torch.Tensor:
@@ -255,7 +269,7 @@ def frontier_should_push(frontier: torch.Tensor, n: int,
         return False
     frac = ENGINE.push_threshold_frac if threshold_frac is None \
         else threshold_frac
-    return int(frontier_size(frontier)) <= max(int(n * frac), 1)
+    return host_read(frontier_size(frontier)) <= max(int(n * frac), 1)
 
 
 def relax_minplus_hybrid(g: CSRGraph, dist: torch.Tensor,
@@ -360,9 +374,9 @@ def _cond_by_rows(rows_push, push_all, pull_all, mixed, arg):
     single-direction branch; mixed batches evaluate both, each masked to its
     rows (the masks make the two halves disjoint, so combining is exact).
     Reads the vector's all/any on the host."""
-    if bool(torch.all(rows_push)):
+    if host_read(torch.all(rows_push)):
         return push_all(arg)
-    if bool(torch.any(rows_push)):
+    if host_read(torch.any(rows_push)):
         return mixed(arg)
     return pull_all(arg)
 
@@ -442,6 +456,14 @@ def bfs_levels_batch(g: CSRGraph, roots: torch.Tensor,
     rows' directions). Returns (level int32[B, N], depth): row b is the BFS
     from roots[b]; depth (a Python int) is the deepest row's count, so
     shallower rows see empty frontiers at the tail levels."""
+    with span("bfs"):
+        level, cur = _bfs_levels_batch(g, roots, threshold_frac, direction)
+    bfs_levels_batch.calls += 1
+    bfs_levels_batch.levels += cur
+    return level, cur
+
+
+def _bfs_levels_batch(g, roots, threshold_frac, direction):
     n = g.num_nodes
     b = roots.shape[0]
     lanes = torch.arange(b, device=g.device)
@@ -472,9 +494,7 @@ def bfs_levels_batch(g: CSRGraph, roots: torch.Tensor,
         newly = reach & (level < 0)
         level = torch.where(newly, cur + 1, level)
         cur += 1
-        changed = bool(torch.any(newly))
-    bfs_levels_batch.calls += 1
-    bfs_levels_batch.levels += cur
+        changed = host_read(torch.any(newly))
     return level, cur
 
 
@@ -518,7 +538,7 @@ def sssp_multi(g: CSRGraph, sources, threshold_frac: float | None = None,
     fr = torch.zeros((b, n), dtype=torch.bool, device=g.device)
     fr[lanes, sources] = True
     if priority != "delta":
-        while bool(torch.any(fr)):
+        while host_read(torch.any(fr)):
             d2 = relax_minplus_hybrid_batch(g, dist, fr, threshold_frac, direction)
             fr = d2 < dist
             dist = d2
@@ -526,7 +546,7 @@ def sssp_multi(g: CSRGraph, sources, threshold_frac: float | None = None,
     delta = int(delta_bucket)
     mod = fr
     bk = torch.zeros((b,), dtype=torch.int32, device=g.device)
-    while bool(torch.any(mod)):
+    while host_read(torch.any(mod)):
         # fused bucket advance: a lane whose window emptied jumps to the
         # bucket of its smallest pending value (upper-bound-only window)
         pend_min = torch.amin(torch.where(mod, dist, INF), dim=1)
@@ -556,7 +576,7 @@ def ppr_multi(g: CSRGraph, sources, delta: float = 0.85,
     rank = restart
     act = torch.ones((b,), dtype=torch.bool, device=g.device)
     it = 0
-    while bool(torch.any(act)):
+    while host_read(torch.any(act)):
         contrib = (rank * inv_deg[None, :])[:, g.rev_indices]     # [B, E]
         pulled = segment_sum_batch(contrib, g.rev_edge_dst, n)
         del contrib

@@ -70,6 +70,7 @@ from ..core import runtime as rt
 from ..core.analysis import ERROR as ANALYSIS_ERROR
 from ..core.analysis import check_schedule, program_analysis
 from ..schedule import Schedule
+from ..trace import span
 from .pool import GraphPool
 
 
@@ -291,6 +292,12 @@ BUILTIN_KINDS = (SsspKind(), BfsKind(), BcKind(), PprKind())
 # --------------------------------------------------------------------------
 # the service
 # --------------------------------------------------------------------------
+
+def _sweep(runner, params_list, **attrs):
+    """One sweep, in its worker thread, inside a `serve.sweep` span."""
+    with span("serve.sweep", **attrs):
+        return runner(params_list)
+
 
 class _Request:
     __slots__ = ("params", "future", "arrival")
@@ -585,17 +592,23 @@ class GraphService:
         return [r for r in batch if not r.future.done()]
 
     async def _lane_loop(self, lane: _Lane) -> None:
+        loop = asyncio.get_running_loop()
         while True:
             batch = await self._gather(lane)
             if not batch:
                 continue
+            formed = loop.time()
             async with self._sweep_sem:
+                start = loop.time()
+                waits = dict(queue_wait_s=sum(start - r.arrival for r in batch),
+                             slot_wait_s=start - formed)
                 # pin: LRU eviction must never drop the views a running
                 # sweep is resolving
                 with self._pool.pin(lane.graph):
                     try:
                         results = await asyncio.to_thread(
-                            lane.runner, [r.params for r in batch])
+                            _sweep, lane.runner, [r.params for r in batch],
+                            kind=lane.kind.name, batch=len(batch), **waits)
                     except asyncio.CancelledError:
                         raise
                     except Exception as exc:   # scatter the failure
